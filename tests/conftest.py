@@ -11,6 +11,11 @@ import pytest
 from repro.core.table import Table
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skipped where there is none")
+
+
 @pytest.fixture(scope="session")
 def tpch_db():
     from repro.tpch import generate
