@@ -20,6 +20,17 @@ Phases, each printing one JSON line:
                  cutovers forced to 0 and once auto-routed; answers must equal
                  the numpy backend's, and the forced run must launch both
                  kernel variants.
+6. entry points — the three other kernels through their own entry points,
+                 with every launch count at 0 just before: ``scan_mask`` (K3,
+                 TPC-H q6's int32 atoms over phase 5's lineitem), ``probe``
+                 (K4, ``l_orderkey`` against sets of 5,000 and 65,536 keys and
+                 q3's order keys) and ``mha_flash`` (K5, the attention widths
+                 of llama3.2-3b and hymba-1.5b at S = 4,096 in bf16, and
+                 llama3.2-3b at S = 1,024 in float32).  Each answer is checked
+                 (the numpy mask, ``torch.isin``, the plain attention); then
+                 each kernel against its plain version with times, bound and
+                 the library yardstick (``torch.isin``,
+                 ``scaled_dot_product_attention``), one line per case.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
@@ -43,14 +54,36 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks from NVIDIA's data sheet (700 W): HBM bandwidth and the
-# float32 rate outside the tensor cores, used for the int32 compares
+# H100 SXM peaks from NVIDIA's data sheet (700 W): HBM bandwidth, the
+# float32 rate outside the tensor cores (also used for the int32 compares)
+# and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 SOURCE = "src/repro_torch/kernels/pred_filter/csrc/pred_filter.cu"
-# the TPU kernel's two pallas_call sites in pred_filter_batch (:272)
+# the TPU kernels' pallas_call sites: pred_filter_batch (:272) has two
 REPLACES = {"cmp": "src/repro/kernels/pred_filter/pred_filter.py:293",
-            "sets": "src/repro/kernels/pred_filter/pred_filter.py:310"}
+            "sets": "src/repro/kernels/pred_filter/pred_filter.py:310",
+            "single": "src/repro/kernels/pred_filter/pred_filter.py:119",
+            "membership": "src/repro/kernels/membership/membership.py:46",
+            "flash_attention": "src/repro/kernels/flash_attn/flash_attn.py:92"}
+# attention widths of two models the repo configures, at its train_4k
+# sequence length (src/repro/models/config.py): (name, config, dtype, S, H,
+# D, window); H is GQA-expanded
+ATTN_CASES = (
+    ("llama3.2-3b", "src/repro/configs/llama3_2_3b.py", "bfloat16", 4096, 24,
+     128, None),
+    ("hymba-1.5b", "src/repro/configs/hymba_1_5b.py", "bfloat16", 4096, 25, 64,
+     2048),
+    ("llama3.2-3b", "src/repro/configs/llama3_2_3b.py", "float32", 1024, 24,
+     128, None),
+)
+# kernel vs plain attention: both compute in float32 from the same inputs
+# and round once to the working type, so they differ by rounding.  bf16: one
+# ulp of the value (at most 2**-7 of it) plus 1e-3, under 4% of a typical
+# output at S = 4,096 (median |out| about 0.027)
+ATTN_TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-3),
+            "float32": dict(rtol=2e-5, atol=2e-5)}
 CUTOVER_ENV = ("PREDTRACE_DEVICE_CUTOVER", "PREDTRACE_MEMBER_CUTOVER",
                "PREDTRACE_RLE_CUTOVER")
 
@@ -371,7 +404,246 @@ def phase_main_path(sf: float):
     if launches["forced"]["cmp"] < 1 or launches["forced"]["sets"] < 1:
         raise AssertionError(f"forced main path missed a kernel variant: "
                              f"{launches['forced']}")
-    return launches["forced"]
+    return launches["forced"], db
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: the other kernels through their entry points
+# --------------------------------------------------------------------------- #
+def reset_all_launches() -> None:
+    from repro_torch.kernels import flash_attn, membership, pred_filter
+
+    for mod in (pred_filter, membership, flash_attn):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import flash_attn, membership, pred_filter
+
+    return {**pred_filter.LAUNCHES, **membership.LAUNCHES,
+            **flash_attn.LAUNCHES}
+
+
+def attention_pairs(s: int, window) -> int:
+    """Unmasked (query, key) pairs of causal attention over ``s`` positions,
+    with keys more than ``window - 1`` behind the query masked."""
+    q = np.arange(s, dtype=np.int64)
+    return int(np.minimum(q + 1, window or s).sum())
+
+
+def entry_inputs(db, seed: int = 6):
+    """The phase's inputs: lineitem's q6 slab, its order keys and three key
+    sets, and per attention case q, k, v ``[1, S, H, D]`` on the card."""
+    from repro_torch.core.expr import Col, land
+    from repro_torch.tpch import ALL_QUERIES
+
+    li, orders = db["lineitem"], db["orders"]
+    rng = np.random.default_rng(seed)
+    okeys = np.asarray(orders.cols["o_orderkey"], np.int32)
+    inp = {
+        "cols": np.stack([li.cols["l_shipdate"],
+                          li.cols["l_quantity"]]).astype(np.int32),
+        "order": {"l_shipdate": 0, "l_quantity": 1},
+        "q6_int": land(Col("l_shipdate") >= 19940101,
+                       Col("l_shipdate") < 19950101, Col("l_quantity") < 24),
+        # q6's whole filter: its l_discount bounds are non-integer floats
+        "q6_whole": ALL_QUERIES["q6"](db).child.pred,
+        "values": np.asarray(li.cols["l_orderkey"], np.int32),
+        "sets": {
+            "5k": rng.choice(okeys, 5_000, replace=False),
+            "65536": rng.choice(okeys, 65_536, replace=False),
+            "q3 orders": okeys[np.asarray(orders.cols["o_orderdate"]) < 19950315],
+        },
+    }
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inp["attn"] = [
+        tuple(torch.randn((1, s, h, d), generator=gen, device="cuda").to(
+            getattr(torch, dt)) for _ in range(3))
+        for _, _, dt, s, h, d, _ in ATTN_CASES]
+    return inp
+
+
+def drive_entry_points(inp) -> tuple:
+    """One call of each entry point, launch counts at 0 just before and read
+    just after; returns (outputs, launches, seconds per call)."""
+    from repro_torch.kernels.flash_attn import mha_flash
+    from repro_torch.kernels.membership import LAUNCHES as MB, probe
+    from repro_torch.kernels.pred_filter import compile_conjunction, scan_mask
+
+    order_whole = {**inp["order"], "l_discount": 2}
+    if compile_conjunction(inp["q6_whole"], order_whole, {}) is not None:
+        raise AssertionError("q6's whole predicate must not compile")
+    torch.cuda.synchronize()
+    reset_all_launches()
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["scan_mask"] = scan_mask(inp["cols"], inp["q6_int"], inp["order"], {})
+    secs["scan_mask"] = time.perf_counter() - t0
+    whole = scan_mask(np.zeros((3, 1024), np.int32), inp["q6_whole"],
+                      order_whole, {})
+    if whole is not None:
+        raise AssertionError("scan_mask of q6's whole predicate must be None")
+    for name, vset in inp["sets"].items():
+        before = MB["membership"]
+        t0 = time.perf_counter()
+        out[f"probe {name}"] = probe(inp["values"], vset)
+        secs[f"probe {name}"] = time.perf_counter() - t0
+        if MB["membership"] != before + 1:
+            raise AssertionError(f"probe {name} did not launch the kernel")
+    for (name, _, dt, s, h, d, window), (q, k, v) in zip(ATTN_CASES,
+                                                         inp["attn"]):
+        t0 = time.perf_counter()
+        out[f"mha_flash {name} {dt}"] = mha_flash(q, k, v, window=window)
+        torch.cuda.synchronize()
+        secs[f"mha_flash {name} {dt}"] = time.perf_counter() - t0
+    launches = all_launches()
+    for key in ("single", "membership", "flash_attention"):
+        if launches[key] < 1:
+            raise AssertionError(f"entry points missed the {key} kernel: "
+                                 f"{launches}")
+    return out, launches, secs
+
+
+def check_entry_outputs(inp, out) -> None:
+    """Each entry point's answer: the numpy mask of q6's atoms,
+    ``torch.isin`` for the probes, the plain attention."""
+    from repro_torch.kernels.flash_attn import mha_ref
+
+    c = inp["cols"]
+    want = (c[0] >= 19940101) & (c[0] < 19950101) & (c[1] < 24)
+    if not np.array_equal(out["scan_mask"], want):
+        raise AssertionError("scan_mask differs from the numpy mask")
+    vals = torch.from_numpy(inp["values"]).cuda()
+    for name, vset in inp["sets"].items():
+        lib = torch.isin(vals, torch.from_numpy(vset).cuda()).cpu().numpy()
+        if not np.array_equal(out[f"probe {name}"], lib):
+            raise AssertionError(f"probe {name} differs from torch.isin")
+    for (name, _, dt, _, _, _, window), (q, k, v) in zip(ATTN_CASES,
+                                                          inp["attn"]):
+        got = out[f"mha_flash {name} {dt}"]
+        ref = mha_ref(q, k, v, window=window)
+        if got.shape != q.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"mha_flash {name}: bad shape or values")
+        if not torch.allclose(got.float(), ref.float(), **ATTN_TOL[dt]):
+            raise AssertionError(f"mha_flash {name} {dt} differs from mha_ref")
+        del ref
+    torch.cuda.empty_cache()
+
+
+def case_record(label, got, want, ms, plain_ms, nbytes, nops, ops_per_s,
+                library_ms=None, **extra):
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = nops / ops_per_s * 1e3
+    err = float((got.float() - want.float()).abs().max().item())
+    rec = dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+               else "operations", bound_bytes=int(nbytes), bound_ops=int(nops),
+               library_ms=library_ms, **extra)
+    emit({"phase": "entry_kernel", **rec})
+    return rec
+
+
+def phase_entry_kernels(inp, secs) -> dict:
+    """Each kernel against its plain version on the entry points' inputs,
+    with CUDA-event times; launches here are not counted."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import attention_ref, flash_attention
+    from repro_torch.kernels.membership import membership_ref
+    from repro_torch.kernels.membership.membership import launch_sorted
+    from repro_torch.kernels.pred_filter import (compile_conjunction,
+                                                 pred_filter, pred_filter_ref)
+
+    recs = {"single": [], "membership": [], "flash_attention": []}
+    # K3: q6's int32 atoms over the padded lineitem slab
+    atoms, thr = compile_conjunction(inp["q6_int"], inp["order"], {})
+    c = inp["cols"]
+    slab = torch.from_numpy(np.pad(c, ((0, 0), (0, (-c.shape[1]) % 1024)))).cuda()
+    thr_d = torch.from_numpy(thr).cuda()
+    got = pred_filter(slab, thr_d, atoms)
+    want = pred_filter_ref(slab, thr_d, atoms)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K3: kernel differs from its plain version")
+    n = slab.shape[1]
+    recs["single"].append(case_record(
+        f"K3 scan_mask q6 atoms, n={n}", got, want,
+        time_ms(lambda: pred_filter(slab, thr_d, atoms)),
+        time_ms(lambda: pred_filter_ref(slab, thr_d, atoms), inner=1),
+        nbytes=4 * 2 * n + 4 * n + 4 * 3 * len(atoms), nops=len(atoms) * n,
+        ops_per_s=ALU_OPS_PER_S, entry_s=secs["scan_mask"]))
+    del slab, got, want
+    # K4: l_orderkey against each set, sorted and de-duplicated as probe
+    # hands them to the kernel
+    vals = torch.from_numpy(inp["values"]).cuda()
+    for name, vset in inp["sets"].items():
+        keys = torch.from_numpy(np.unique(vset)).cuda()
+        got = launch_sorted(vals, keys)
+        want = membership_ref(vals, keys)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {name}: kernel differs from its plain version")
+        n, m = vals.numel(), keys.numel()
+        recs["membership"].append(case_record(
+            f"K4 probe l_orderkey in {name} ({m} keys), n={n}", got, want,
+            time_ms(lambda: launch_sorted(vals, keys)),
+            time_ms(lambda: membership_ref(vals, keys), inner=1),
+            nbytes=4 * n + 4 * m + 4 * n, nops=n * (m.bit_length() + 1),
+            ops_per_s=ALU_OPS_PER_S,
+            library_ms=time_ms(lambda: torch.isin(vals, keys), inner=1),
+            set_keys=m, entry_s=secs[f"probe {name}"]))
+    del vals, got, want
+    # K5: the kernel on the folded [BH, S, D] inputs; SDPA on [B, H, S, D]
+    for (name, cfg, dt, s, h, d, window), (q, k, v) in zip(ATTN_CASES,
+                                                            inp["attn"]):
+        qf, kf, vf = (x.movedim(2, 1).reshape(h, s, d).contiguous()
+                      for x in (q, k, v))
+        got = flash_attention(qf, kf, vf, window=window)
+        want = attention_ref(qf, kf, vf, window=window)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dt]
+        if not torch.allclose(got.float(), want.float(), **tol):
+            raise AssertionError(f"K5 {name} {dt}: kernel differs from its "
+                                 f"plain version")
+        # the readings the limit is set from: the error against the size of
+        # the outputs, and its worst share of the limit
+        absw = want.float().abs()
+        sizes = dict(out_abs_median=float(absw.median()),
+                     out_abs_mean=float(absw.mean()),
+                     out_abs_max=float(absw.max()),
+                     share_of_limit=float(((got.float() - want.float()).abs()
+                                           / (tol["atol"] + tol["rtol"] * absw)
+                                           ).max()))
+        del absw
+        q4, k4, v4 = (x.view(1, h, s, d) for x in (qf, kf, vf))
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+        lib_err = float((sdpa().view(h, s, d).float() - want.float()).abs().max())
+        elem = qf.element_size()
+        recs["flash_attention"].append(case_record(
+            f"K5 mha_flash {name} {dt} S={s} H={h} D={d} window={window}",
+            got, want,
+            time_ms(lambda: flash_attention(qf, kf, vf, window=window),
+                    reps=10, inner=2),
+            time_ms(lambda: attention_ref(qf, kf, vf, window=window),
+                    reps=5, inner=1),
+            nbytes=4 * h * s * d * elem,
+            nops=4 * h * d * attention_pairs(s, window),
+            ops_per_s=BF16_FLOPS_PER_S if dt == "bfloat16" else ALU_OPS_PER_S,
+            library_ms=time_ms(sdpa, reps=10, inner=2), config=cfg,
+            tolerance=tol, library_max_abs_err=lib_err,
+            entry_s=secs[f"mha_flash {name} {dt}"], **sizes))
+        del got, want
+        torch.cuda.empty_cache()
+    return recs
 
 
 # --------------------------------------------------------------------------- #
@@ -386,7 +658,7 @@ def main() -> None:
         if mod.split(".")[0] in ("jax", "repro"):
             sys.exit(f"chip_smoke.py: {mod} must not be imported")
     # the port must be importable before anything is printed
-    from repro_torch.kernels.pred_filter import _build
+    from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -400,16 +672,29 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(str(lib), ROOT)})
 
+    # float32 products of the plain versions stay in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     n_lineitem = 6_001_215  # TPC-H sf-1 lineitem rows
     k1, k2 = phase_kernels(n_lineitem)
     phase_device_ratio()
-    launches = phase_main_path(args.sf)
+    main_launches, db = phase_main_path(args.sf)
+    t6 = time.perf_counter()
+    inp = entry_inputs(db)
+    del db
+    out, entry_launches, secs = drive_entry_points(inp)
+    emit({"phase": "entry_launches", "launches": entry_launches,
+          "seconds": secs})
+    check_entry_outputs(inp, out)
+    del out
+    recs = phase_entry_kernels(inp, secs)
+    emit({"phase": "entry_points_total", "seconds": time.perf_counter() - t6})
     if any(m in sys.modules for m in ("jax", "repro")):
         raise AssertionError("jax or the reference package was imported")
 
-    def entry(name, recs, variant):
-        r = recs[0]
-        return {"name": name, "route": "cuda", "source": SOURCE,
+    def entry(name, recs, variant, launches, source=SOURCE, pick=0):
+        r = recs[pick]
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[variant],
                 "launches": int(launches[variant]),
                 "max_abs_err": max(x["max_abs_err"] for x in recs),
@@ -417,10 +702,20 @@ def main() -> None:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"]}
 
+    kdir = "src/repro_torch/kernels"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [
-        entry("pred_filter_batch (comparison variant, K1)", k1, "cmp"),
-        entry("pred_filter_batch (set variant, K2)", k2, "sets"),
+        entry("pred_filter_batch (comparison variant, K1)", k1, "cmp",
+              main_launches),
+        entry("pred_filter_batch (set variant, K2)", k2, "sets",
+              main_launches),
+        entry("pred_filter (single binding, K3)", recs["single"], "single",
+              entry_launches),
+        entry("membership (K4)", recs["membership"], "membership",
+              entry_launches, f"{kdir}/membership/csrc/membership.cu", pick=-1),
+        entry("flash_attention (K5)", recs["flash_attention"],
+              "flash_attention", entry_launches,
+              f"{kdir}/flash_attn/csrc/flash_attn.cu"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 // (src/repro/kernels/pred_filter/pred_filter.py), both of its variants:
 // ``_kernel_batch`` (comparison atoms) and ``_kernel_batch_sets`` (comparison
 // atoms plus ``IN`` atoms searched in sorted per-binding set segments).
-// It computes what the TPU kernel computes, bit for bit.
+// It computes what the TPU kernel computes, bit for bit.  The file also holds
+// the single-binding ``pred_filter`` (``_kernel`` there), at the end.
 //
 // What it computes: for K bindings (rows of ``thr [K, A]``), the
 // conjunction of A atoms ``col[atom_col[j]] <op[j]> thr[k, j]`` and M set
@@ -226,4 +227,104 @@ extern "C" int pred_filter_batch_launch(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
+}
+
+// --------------------------------------------------------------------------
+// Single-binding scan: replaces the TPU kernel ``pred_filter`` (``_kernel``
+// in src/repro/kernels/pred_filter/pred_filter.py), the kernel behind the
+// reference's ``scan_mask``.  One binding: the AND of A compares
+// ``col[atom_col[j]] <op[j]> thr[j]`` over ``cols [C, N]``, written as an
+// int32 0/1 mask ``[N]``, with no zone phase (the TPU kernel has none).
+//
+// Bound on this card: memory.  Each referenced column is read once (4 bytes
+// a row) and 4 bytes a row are written; A compares a row cost far less than
+// those bytes.  Each thread takes 4 consecutive rows, so column loads are
+// 16-byte __ldg loads and the mask store one 16-byte store, all coalesced;
+// the loads of 4 atoms are issued together so their latencies overlap.
+// The program (atom columns, atom ops) is a device array, as for the batched
+// kernel, so a new predicate needs no rebuild.
+// --------------------------------------------------------------------------
+
+namespace {
+
+template <bool kVec>
+__global__ void pred_filter_kernel(const int32_t* __restrict__ cols,
+                                   int64_t n, const int32_t* __restrict__ thr,
+                                   int a, const int32_t* __restrict__ prog,
+                                   int32_t* __restrict__ out) {
+  const int32_t* atom_col = prog;
+  const int32_t* atom_op = prog + a;
+  const int64_t row0 =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * kRowsPerThread;
+  if (row0 >= n) return;
+  bool r[kRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) r[i] = true;
+  for (int j0 = 0; j0 < a; j0 += kAtomChunk) {
+    // past the end the last atom repeats (ANDing an atom twice changes
+    // nothing)
+    int op[kAtomChunk], tj[kAtomChunk], v[kAtomChunk][kRowsPerThread];
+#pragma unroll
+    for (int u = 0; u < kAtomChunk; ++u) {
+      const int j = min(j0 + u, a - 1);
+      op[u] = __ldg(atom_op + j);
+      tj[u] = __ldg(thr + j);
+      const int32_t* c = cols + (int64_t)__ldg(atom_col + j) * n + row0;
+      if (kVec) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(c));
+        v[u][0] = x.x; v[u][1] = x.y; v[u][2] = x.z; v[u][3] = x.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          v[u][i] = row0 + i < n ? __ldg(c + i) : 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAtomChunk; ++u) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        r[i] = r[i] && cmp(op[u], v[u][i], tj[u]);
+      }
+    }
+  }
+  if (kVec) {
+    *reinterpret_cast<int4*>(out + row0) = make_int4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      if (row0 + i < n) out[row0 + i] = r[i];
+    }
+  }
+}
+
+}  // namespace
+
+// Launches one single-binding scan on ``stream``.  Device pointers: cols
+// [c, n], thr [a], prog [2a] (atom columns, then atom ops), out [n] int32.
+// Any n; the 16-byte path is taken when n % 4 == 0 and cols and out are
+// 16-byte aligned.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int pred_filter_launch(const int32_t* cols, int64_t n,
+                                  const int32_t* thr, int a,
+                                  const int32_t* prog, int32_t* out,
+                                  void* stream) {
+  if (n < 0 || a < 0 || (a > 0 && (prog == nullptr || thr == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  constexpr int kThreads = 256;
+  const int64_t groups = (n + kRowsPerThread - 1) / kRowsPerThread;
+  const unsigned blocks = static_cast<unsigned>((groups + kThreads - 1) / kThreads);
+  const bool vec = n % kRowsPerThread == 0 &&
+                   reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    pred_filter_kernel<true><<<blocks, kThreads, 0, st>>>(cols, n, thr, a,
+                                                           prog, out);
+  } else {
+    pred_filter_kernel<false><<<blocks, kThreads, 0, st>>>(cols, n, thr, a,
+                                                            prog, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the fused predicate scan.
+"""Plain PyTorch version of the fused predicate scans.
 
 ``pred_filter_batch_ref`` takes no zone operands on purpose: the kernel's
 in-block pruning only skips blocks its (data-derived) bounds prove empty, so
@@ -94,6 +94,16 @@ def _batch_bool(cols, thresholds, atoms: Tuple[Tuple[int, int], ...],
         acc = _member_acc(acc, cols, set_cols, set_slab, set_off, set_len,
                           iters)
     return acc
+
+
+def pred_filter_ref(cols, thresholds, atoms: Tuple[Tuple[int, int], ...]):
+    """Single binding: cols ``[C, N]`` int32, thresholds ``[A]`` int32 ->
+    ``[N]`` int32 0/1 mask (the wrapper ``pred_filter`` runs this for CPU
+    tensors)."""
+    acc = torch.ones(cols.shape[1], dtype=torch.bool, device=cols.device)
+    for j, (ci, op) in enumerate(atoms):
+        acc = torch.logical_and(acc, _cmp(cols[ci], thresholds[j], op))
+    return acc.to(torch.int32)
 
 
 def pred_filter_batch_ref(cols, thresholds, atoms: Tuple[Tuple[int, int], ...],

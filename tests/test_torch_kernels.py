@@ -1,0 +1,380 @@
+"""The port's ``pred_filter``, ``membership`` and ``flash_attention`` and
+their entry points against the JAX package's, case by case as
+``tests/test_kernels.py`` drives the reference.
+
+The same numpy inputs, made from a seed, go through the reference's Pallas
+kernels (interpret mode) and the port's wrappers on CPU tensors (their plain
+PyTorch versions).  Masks must be exactly equal.  Attention agrees within
+2e-5 in float32; in bf16 both sides compute in float32 from the same inputs
+and round once, so they differ by rounding: within ``2**-7 * |want| +
+1e-3``, one bf16 ulp of the value plus about 1% of a typical output
+(median |out| 0.075-0.105 at these shapes, 0.026-0.029 at S = 4,096).
+One case per kernel runs the CUDA kernel against its plain version and is
+skipped without a card; the reference package is imported inside the
+parity helpers, so those cases also run where JAX is not installed:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import expr as port_expr
+from repro_torch.kernels.flash_attn import (
+    LAUNCHES as FA_LAUNCHES,
+    attention_ref,
+    flash_attention,
+    mha_flash,
+    mha_ref,
+)
+from repro_torch.kernels.membership import (
+    LAUNCHES as MB_LAUNCHES,
+    SENTINEL,
+    membership,
+    probe,
+)
+from repro_torch.kernels.pred_filter import (
+    LAUNCHES as PF_LAUNCHES,
+    OPS,
+    compile_conjunction,
+    pred_filter,
+    pred_filter_ref,
+    scan_mask,
+)
+
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _jnp():
+    import jax.numpy as jnp
+
+    return jnp
+
+
+# --------------------------------------------------------------------------- #
+# pred_filter (K3) and scan_mask
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("n_rows", [512, 2048, 4096])
+@pytest.mark.parametrize("n_atoms", [1, 3, 6])
+def test_pred_filter_sweep(n_rows, n_atoms):
+    from repro.kernels.pred_filter import pred_filter as ref_pred_filter
+
+    jnp = _jnp()
+    rng = np.random.default_rng(10 * n_rows + n_atoms)
+    cols = rng.integers(-50, 50, (8, n_rows)).astype(np.int32)
+    atoms = tuple((int(rng.integers(0, 8)), int(rng.integers(0, 6)))
+                  for _ in range(n_atoms))
+    thr = rng.integers(-50, 50, n_atoms).astype(np.int32)
+    want = np.asarray(ref_pred_filter(jnp.asarray(cols), jnp.asarray(thr),
+                                      atoms, block_rows=512, interpret=True))
+    got = pred_filter(torch.from_numpy(cols), torch.from_numpy(thr), atoms,
+                      block_rows=512)
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        pred_filter_ref(torch.from_numpy(cols), torch.from_numpy(thr),
+                        atoms).numpy(), want)
+
+
+def test_pred_filter_rejects_unpadded_rows():
+    cols = torch.zeros((2, 1000), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pred_filter(cols, torch.zeros(1, dtype=torch.int32), ((0, 0),),
+                    block_rows=512)
+
+
+def _predicates(E):
+    """(name, predicate, binding) cases built from one package's ``expr``:
+    kernel-compatible conjunctions first, then every None case."""
+    Col, Lit, Param, BinOp = E.Col, E.Lit, E.Param, E.BinOp
+    return [
+        ("range_eq", E.land(Col("a") >= 10, Col("b") < 50,
+                            Col("c").eq(Param("v"))), {"v": 7}),
+        ("literal_left", E.land(BinOp("<", Lit(20), Col("a")),
+                                BinOp(">=", Lit(60), Col("b")),
+                                BinOp("!=", Lit(3), Col("c"))), {}),
+        ("integral_float", E.land(Col("a") <= 40.0, Col("c").ne(Param("v"))),
+         {"v": np.int64(5)}),
+        ("single", Col("b") > Param("t"), {"t": 90}),
+        ("not_binop", E.IsIn(Col("a"), (1, 2)), {}),
+        ("not_comparison", E.land(Col("a") >= 1, Col("a") + 1), {}),
+        ("fraction", E.land(Col("a") >= 1, Col("b") < 2.5), {}),
+        ("bool", Col("a").eq(True), {}),
+        ("list_value", Col("a").eq(Param("s")), {"s": [1, 2]}),
+        ("array_value", Col("a").eq(Param("s")), {"s": np.array([1, 2])}),
+        ("unbound_param", Col("a") < Param("missing"), {}),
+        ("unknown_column", Col("z") < 3, {}),
+        ("col_vs_col", Col("a") < Col("b"), {}),
+        ("empty", E.land(), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _predicates(port_expr)])
+def test_scan_mask_and_compile_match_reference(case):
+    from repro.core import expr as ref_expr
+    from repro.kernels.pred_filter import compile_conjunction as ref_compile
+    from repro.kernels.pred_filter import scan_mask as ref_scan_mask
+
+    (_, pred, binding), = [c for c in _predicates(port_expr) if c[0] == case]
+    (_, rpred, rbinding), = [c for c in _predicates(ref_expr) if c[0] == case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    cols = rng.integers(0, 100, (3, 1000)).astype(np.int32)
+    order = {"a": 0, "b": 1, "c": 2}
+
+    got_c, want_c = (compile_conjunction(pred, order, binding),
+                     ref_compile(rpred, order, rbinding))
+    assert (got_c is None) == (want_c is None)
+    if got_c is not None:
+        assert got_c[0] == want_c[0]
+        assert got_c[1].dtype == want_c[1].dtype == np.int32
+        np.testing.assert_array_equal(got_c[1], want_c[1])
+
+    want = ref_scan_mask(cols, rpred, order, rbinding, block_rows=512)
+    for use_kernel in (True, False):
+        got = scan_mask(cols, pred, order, binding, use_kernel=use_kernel,
+                        block_rows=512, device="cpu")
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got.dtype == want.dtype == np.bool_
+            np.testing.assert_array_equal(got, want)
+    if case == "range_eq":
+        np.testing.assert_array_equal(
+            want, (cols[0] >= 10) & (cols[1] < 50) & (cols[2] == 7))
+
+
+# --------------------------------------------------------------------------- #
+# membership (K4) and probe
+# --------------------------------------------------------------------------- #
+
+
+def _probe_all(vals, vset):
+    """(port on the CPU, reference in interpret mode, np.isin)."""
+    from repro.kernels.membership import probe as ref_probe
+
+    got = probe(vals, vset, device="cpu")
+    assert got.dtype == np.bool_ and got.shape == vals.shape
+    return got, ref_probe(vals, vset, interpret=True), np.isin(vals, vset)
+
+
+@pytest.mark.parametrize("n", [100, 1024, 5000])
+@pytest.mark.parametrize("m", [1, 63, 256, 2000])
+def test_probe_sweep(n, m):
+    rng = np.random.default_rng(1000 * n + m)
+    vals = rng.integers(0, 10_000, n).astype(np.int32)
+    vset = rng.choice(10_000, m, replace=False).astype(np.int32)
+    got, ref, want = _probe_all(vals, vset)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        probe(vals, vset, use_kernel=False, device="cpu"), want)
+
+
+@pytest.mark.parametrize("case", ["large_set", "empty_set", "empty_values",
+                                  "edge_keys"])
+def test_probe_edges(case):
+    rng = np.random.default_rng(len(case))
+    if case == "large_set":  # past the reference's VMEM limit of 65,536 keys
+        vset = rng.choice(1 << 22, 70_000, replace=False).astype(np.int32)
+        vals = np.concatenate([rng.choice(vset, 1500),
+                               rng.integers(0, 1 << 22, 1500)]).astype(np.int32)
+    elif case == "empty_set":
+        vals = rng.integers(0, 10, 100).astype(np.int32)
+        vset = np.array([], np.int32)
+    elif case == "empty_values":
+        vals = np.array([], np.int32)
+        vset = np.array([1, 2, 3], np.int32)
+    else:  # the set holds the int32 extremes, so the reference's padding
+        # with SENTINEL = INT32_MIN adds no member
+        vset = np.array([I32_MIN, I32_MAX, -7, 0, 9, -7], np.int32)
+        vals = np.array([I32_MIN, I32_MIN + 1, I32_MAX, I32_MAX - 1, -7, -8,
+                         0, 9, 10] * 50, np.int32)
+    got, ref, want = _probe_all(vals, vset)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_probe_sentinel_is_an_ordinary_value():
+    """The port does not pad the set, so INT32_MIN is a member only when the
+    set holds it, as in ``np.isin``.  (The reference pads the set with
+    SENTINEL = INT32_MIN and reports INT32_MIN as a member here.)"""
+    vals = np.array([SENTINEL, SENTINEL + 1, 5, I32_MAX], np.int32)
+    vset = np.array([5, 7, I32_MAX], np.int32)
+    np.testing.assert_array_equal(probe(vals, vset, device="cpu"),
+                                  np.isin(vals, vset))
+
+
+def test_membership_unsorted_duplicated_set():
+    from repro.kernels.membership import membership as ref_membership
+
+    jnp = _jnp()
+    rng = np.random.default_rng(5)
+    vset = rng.integers(-300, 300, 512).astype(np.int32)  # duplicates
+    vals = rng.integers(-400, 400, 2048).astype(np.int32)
+    got = membership(torch.from_numpy(vals), torch.from_numpy(vset))
+    want = np.asarray(ref_membership(jnp.asarray(vals), jnp.asarray(vset),
+                                     interpret=True))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.isin(vals, vset))
+    with pytest.raises(ValueError):
+        membership(torch.from_numpy(vals[:1000]), torch.from_numpy(vset))
+
+
+def test_launch_sorted_takes_only_cuda_tensors():
+    """``probe``'s route to the kernel never falls back to the plain
+    version: CPU tensors raise."""
+    from repro_torch.kernels.membership.membership import launch_sorted
+
+    x = torch.arange(10, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        launch_sorted(x, x)
+
+
+# --------------------------------------------------------------------------- #
+# flash attention (K5) and mha_flash
+# --------------------------------------------------------------------------- #
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2 ** -7, atol=1e-3)}
+
+
+def _as_both(x: np.ndarray, dtype: str):
+    jnp = _jnp()
+    return jnp.asarray(x, getattr(jnp, dtype)), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d,window", [(256, 64, None), (512, 128, None),
+                                        (384, 64, 128)])
+def test_flash_attention_sweep(s, d, window, dtype):
+    from repro.kernels.flash_attn import flash_attention as ref_flash
+
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_as_both(rng.standard_normal((2, s, d)).astype(np.float32),
+                        dtype) for _ in range(3))
+    want = ref_flash(q[0], k[0], v[0], window=window, bq=128, bk=128,
+                     interpret=True)
+    got = flash_attention(q[1], k[1], v[1], window=window)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (2, s, d)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_mha_flash_layout(window):
+    from repro.kernels.flash_attn import mha_flash as ref_mha_flash
+
+    rng = np.random.default_rng(11)
+    B, S, H, D = 2, 256, 4, 64
+    q, k, v = (_as_both(rng.standard_normal((B, S, H, D)).astype(np.float32),
+                        "float32") for _ in range(3))
+    want = np.asarray(ref_mha_flash(q[0], k[0], v[0], window=window,
+                                    interpret=True))
+    got = mha_flash(q[1], k[1], v[1], window=window)
+    assert tuple(got.shape) == (B, S, H, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(mha_ref(q[1], k[1], v[1], window=window).numpy(),
+                               want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_rejects_unpadded_seq():
+    x = torch.zeros((1, 200, 64))
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)
+    y = torch.zeros((1, 256, 64))
+    with pytest.raises(ValueError):  # k, v of another shape than q
+        flash_attention(y, x, x)
+    with pytest.raises(ValueError):
+        flash_attention(y, y, y, window=0)
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernels against their plain versions (need a card)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_pred_filter_matches_plain(cuda_device):
+    """Every op, a program of 9 atoms, and N = 1024 * 37 rows."""
+    rng = np.random.default_rng(800)
+    n = 1024 * 37
+    cols = rng.integers(-40, 40, (4, n)).astype(np.int32)
+    programs = [tuple((j % 4, op) for j, op in enumerate(ops))
+                for ops in ((5, 2, 1), (0, 4, 3), (3, 1, 0, 5, 2, 4, 0, 1, 3))]
+    for atoms in programs:
+        thr = rng.integers(-40, 40, len(atoms)).astype(np.int32)
+        thr[0] = cols[atoms[0][0], n // 2]  # an exact hit
+        want = pred_filter(torch.from_numpy(cols), torch.from_numpy(thr), atoms)
+        before = PF_LAUNCHES["single"]
+        got = pred_filter(torch.from_numpy(cols).to(cuda_device),
+                          torch.from_numpy(thr).to(cuda_device), atoms)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), atoms
+        assert PF_LAUNCHES["single"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_membership_matches_plain(cuda_device):
+    """Edge keys, duplicates, an unsorted set, an empty set, and a set far
+    past the reference's VMEM limit."""
+    rng = np.random.default_rng(801)
+    n = 1024 * 40
+    vals = rng.integers(-5000, 5000, n).astype(np.int32)
+    vals[:6] = [I32_MIN, I32_MIN + 1, I32_MAX, I32_MAX - 1, 0, -1]
+    sets = [rng.integers(-5000, 5000, 777).astype(np.int32),
+            np.array([I32_MIN, I32_MAX, 0], np.int32),
+            np.array([], np.int32),
+            rng.choice(1 << 24, 200_000, replace=False).astype(np.int32) - 5000]
+    for vset in sets:
+        want = membership(torch.from_numpy(vals), torch.from_numpy(vset))
+        before = MB_LAUNCHES["membership"]
+        got = membership(torch.from_numpy(vals).to(cuda_device),
+                         torch.from_numpy(vset).to(cuda_device))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), vset.size
+        assert MB_LAUNCHES["membership"] == before + 1
+        got_probe = probe(vals[:1000], vset)
+        np.testing.assert_array_equal(got_probe, np.isin(vals[:1000], vset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
+    """Both head dims, with and without a window, and an S that is not a
+    multiple of the kernel's 64-row tile (bq = bk = 32 on the call)."""
+    # the plain version's float32 products stay in float32 (no TF32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(802)
+    tol = TOL[dtype]
+    for s, d, window in ((256, 64, None), (384, 128, None), (512, 64, 100),
+                         (288, 128, 40)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d)).astype(
+            np.float32)).to(cuda_device, getattr(torch, dtype))
+            for _ in range(3))
+        want = attention_ref(q, k, v, window=window)
+        before = FA_LAUNCHES["flash_attention"]
+        got = flash_attention(q, k, v, window=window, bq=32, bk=32)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype
+        assert FA_LAUNCHES["flash_attention"] == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    # the model layout at batch 1, where folding must still copy
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 256, 4, 64)).astype(
+        np.float32)).to(cuda_device, getattr(torch, dtype)) for _ in range(3))
+    torch.testing.assert_close(mha_flash(q, k, v).float(),
+                               mha_ref(q, k, v).float(), **tol)
