@@ -6,7 +6,10 @@ Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (``ref.py``); CUDA tensors launch the kernel or raise.  The
 kernel takes float32 or bf16 and a head dim of 64 or 128, and any S; ``bq``
 and ``bk`` are the reference's block sizes and keep its contract (S a
-multiple of both), the kernel tiles by 64 queries and 32 keys.
+multiple of both).  bf16 runs on the tensor cores (``mma.sync``, 64 queries
+by 64 keys a tile), float32 on the CUDA cores in true float32 (64 queries by
+32 keys); ``ref.attention_limit`` states how far each may be from the plain
+version.
 """
 
 from __future__ import annotations

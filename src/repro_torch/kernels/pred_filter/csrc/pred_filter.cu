@@ -16,8 +16,10 @@
 //
 // Bound on this card: memory.  Every referenced column is read once
 // (4 bytes a row each) and K bytes a row are written; the compares and the
-// log2(|set|) probes of a row cost far fewer cycles than its bytes take to
-// move at the card's memory rate.  The design serves that bound:
+// log2(|set|) probes of a row are far fewer operations than its bytes take
+// to move at the card's memory rate.  The comparison variant runs near that
+// bound; the set variant is held above it by its searches (below).  The
+// design:
 //   * one CTA per zone block of ``block_rows`` rows (1024 on the main path),
 //     4 consecutive rows per thread, so column loads are 16-byte vector
 //     loads and mask stores are 4-byte vector stores, both coalesced;
@@ -31,9 +33,24 @@
 //     (independent loads, so their latencies overlap), the first binding's
 //     reads come from memory and the later bindings' repeat reads hit L1;
 //   * the output is bytes, not the TPU kernel's int32: a quarter of the
-//     device-to-host readback;
-//   * the set slab (at most 65,536 keys, more than a block's shared memory)
-//     stays in global memory and L2 and is read with __ldg.
+//     device-to-host readback.
+// The IN atoms are where the time goes: a row's lower-bound search is a
+// chain of scattered reads, and over random keys those reads, not the
+// columns' bytes, set the time (K4's lock-step search takes as long on the
+// same keys, and half as long on sorted ones).  The set slab (at most 65,536
+// keys on the main path, more than a block's shared memory) stays in global
+// memory and L2.  The 4 rows of a thread are searched in lock step: a fixed
+// number of halvings, bit_length(len) of the segment (not the reference's
+// ``iters``), so 4 independent loads are in flight at each step; a row that
+// a compare atom killed searches an empty range at the segment's start, so
+// its probes merge with every other dead row's into one broadcast read.
+// The search ends at the exact lower bound of the key in its sorted
+// segment, which is also where the reference's ``iters`` halvings end when
+// ``iters`` = search_iters(longest segment), as its callers pass it; so the
+// masks are bit-identical.  ``iters`` bounds only the zone phase's search.
+// No index of the set is staged in shared memory: each CTA would stage it
+// for its one zone block, and on the main path's launches (q12: K = 1, a
+// 2-key set) that staging cost more than the steps it saved (PERF.md).
 // The atom program (atom columns, atom ops, set columns) is a runtime int32
 // array in device memory, uploaded with the thresholds, so a new predicate
 // structure needs no rebuild and a program may hold any number of atoms.
@@ -91,6 +108,8 @@ __device__ __forceinline__ int lower_bound(const int32_t* __restrict__ slab,
   }
   return lo;
 }
+
+__device__ __forceinline__ int bit_length(int x) { return 32 - __clz(x); }
 
 // prog = [atom_col[a], atom_op[a], set_col[m]]
 __global__ void pred_filter_batch_kernel(
@@ -171,18 +190,43 @@ __global__ void pred_filter_batch_kernel(
       live = r[0] || r[1] || r[2] || r[3];
     }
     for (int mm = 0; mm < m && live; ++mm) {
-      const int seg_lo = set_off[(int64_t)k * m + mm];
-      const int seg_hi = seg_lo + set_len[(int64_t)k * m + mm];
+      const int seg = k * m + mm;
+      const int seg_lo = set_off[seg];
+      const int len = set_len[seg];
+      const int seg_hi = seg_lo + len;
       const int4 v4 = __ldg(reinterpret_cast<const int4*>(
           cols + (int64_t)__ldg(set_col + mm) * n + row0));
-      const int v[kRowsPerThread] = {v4.x, v4.y, v4.z, v4.w};
+      const int x[kRowsPerThread] = {v4.x, v4.y, v4.z, v4.w};
+      // a dead row searches an empty range at seg_lo: its probes all read
+      // the same slab word as every other dead row's, one broadcast read
+      int lo[kRowsPerThread], hi[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        lo[i] = seg_lo;
+        hi[i] = r[i] ? seg_hi : seg_lo;
+      }
+      const int steps = bit_length(len);
+      // lower bound in the slab, the 4 rows in lock step, every read clamped
+      // to the slab (an empty segment may sit at its end)
+      for (int it = 0; it < steps; ++it) {
+        int sv[kRowsPerThread];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          sv[i] = __ldg(slab + min((lo[i] + hi[i]) >> 1, cap));
+        }
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const bool go = lo[i] < hi[i];
+          const int mid = (lo[i] + hi[i]) >> 1;
+          const bool below = go && sv[i] < x[i];
+          lo[i] = below ? mid + 1 : lo[i];
+          hi[i] = (go && !below) ? mid : hi[i];
+        }
+      }
       live = false;
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
-        if (r[i]) {
-          const int pos = lower_bound(slab, cap, v[i], seg_lo, seg_hi, iters);
-          r[i] = pos < seg_hi && __ldg(slab + min(pos, cap)) == v[i];
-        }
+        r[i] = r[i] && lo[i] < seg_hi && __ldg(slab + min(lo[i], cap)) == x[i];
         live = live || r[i];
       }
     }

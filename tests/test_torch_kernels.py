@@ -9,14 +9,20 @@ PyTorch versions).  Masks must be exactly equal.  Attention agrees within
 and round once, so they differ by rounding: within ``2**-7 * |want| +
 1e-3``, one bf16 ulp of the value plus about 1% of a typical output
 (median |out| 0.075-0.105 at these shapes, 0.026-0.029 at S = 4,096).
-One case per kernel runs the CUDA kernel against its plain version and is
-skipped without a card; the reference package is imported inside the
-parity helpers, so those cases also run where JAX is not installed:
+The CUDA kernel in bf16 also rounds P to bf16 before P V, so it is held to
+``attention_limit`` per element and to ``BF16_RMS_LIMIT`` over all
+elements; CPU tests emulate that rounding and check both, and check that a
+control which also rounds the scores fails the second.
+The cases that run a CUDA kernel against its plain version are skipped
+without a card; the reference package is imported inside the parity
+helpers, so those cases also run where JAX is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -24,12 +30,17 @@ import torch
 
 from repro_torch.core import expr as port_expr
 from repro_torch.kernels.flash_attn import (
+    BF16_RMS_LIMIT,
     LAUNCHES as FA_LAUNCHES,
+    attention_bf16_scores,
+    attention_limit,
     attention_ref,
     flash_attention,
     mha_flash,
     mha_ref,
+    rms_ratio,
 )
+from repro_torch.kernels.flash_attn.ops import _fold
 from repro_torch.kernels.membership import (
     LAUNCHES as MB_LAUNCHES,
     SENTINEL,
@@ -283,6 +294,78 @@ def test_mha_flash_layout(window):
                                want, rtol=2e-5, atol=2e-5)
 
 
+# the shapes the bf16 limit is checked at, on the CPU and on the card: both
+# head dims, S ragged against the kernel's 64-row tiles (288) or not, and
+# windows narrower than a tile, so that rows meet fully masked tiles first
+LIMIT_SHAPES = [(s, d, w) for d in (64, 128) for s in (64, 288, 384, 1024)
+                for w in (None, 40, 100)]
+
+
+def _bf16_inputs(seed: int, s: int, d: int, bh: int = 2):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+
+
+def _emulate_bf16_kernel(q, k, v, window, tile: int = 64):
+    """The bf16 CUDA kernel's arithmetic in plain PyTorch: float32 scores
+    and online softmax over 64-key tiles, P rounded to bf16 before P V, l
+    summed from the float32 P, the output rounded to bf16 once."""
+    BH, S, D = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    pos = torch.arange(S)
+    m = torch.full((BH, S, 1), -1e30)
+    l = torch.zeros((BH, S, 1))
+    acc = torch.zeros((BH, S, D))
+    for k0 in range(0, S, tile):
+        sc = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + tile]) / math.sqrt(D)
+        kpos = pos[None, k0:k0 + tile]
+        keep = kpos <= pos[:, None]
+        if window is not None:
+            keep &= kpos > pos[:, None] - window
+        sc = sc.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(),
+                                         vf[:, k0:k0 + tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,d,window", LIMIT_SHAPES)
+def test_bf16_p_rounding_stays_within_limit(s, d, window):
+    """P rounded to bf16 before P V stays within ``attention_limit``."""
+    q, k, v = _bf16_inputs(s + d + (window or 0), s, d)
+    want = attention_ref(q, k, v, window=window)
+    got = _emulate_bf16_kernel(q, k, v, window)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
+
+
+@pytest.mark.parametrize("s,d,window", LIMIT_SHAPES)
+def test_bf16_rms_limit_passes_kernel_fails_control(s, d, window):
+    """Over all elements, the kernel's rounding stays within
+    ``BF16_RMS_LIMIT`` and the control that also rounds the scores to bf16
+    does not."""
+    q, k, v = _bf16_inputs(s + d + (window or 0), s, d)
+    want = attention_ref(q, k, v, window=window)
+    assert rms_ratio(_emulate_bf16_kernel(q, k, v, window), want) <= BF16_RMS_LIMIT
+    control = attention_bf16_scores(q, k, v, window=window)
+    assert rms_ratio(control, want) > BF16_RMS_LIMIT
+
+
+def test_attention_limit_float32():
+    """float32 inputs keep the true-float32 limit, 2e-5 + 2e-5 |want|."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 128, 64)).astype(
+        np.float32)) for _ in range(3))
+    want = attention_ref(q, k, v, window=40)
+    torch.testing.assert_close(attention_limit(q, k, v, want, window=40),
+                               2e-5 + 2e-5 * want.abs(), rtol=0, atol=0)
+
+
 def test_flash_attention_rejects_unpadded_seq():
     x = torch.zeros((1, 200, 64))
     with pytest.raises(ValueError):
@@ -360,7 +443,6 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
     # the plain version's float32 products stay in float32 (no TF32)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(802)
-    tol = TOL[dtype]
     for s, d, window in ((256, 64, None), (384, 128, None), (512, 64, 100),
                          (288, 128, 40)):
         q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d)).astype(
@@ -372,9 +454,30 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
         torch.cuda.synchronize()
         assert got.dtype == q.dtype
         assert FA_LAUNCHES["flash_attention"] == before + 1
-        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
     # the model layout at batch 1, where folding must still copy
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 256, 4, 64)).astype(
         np.float32)).to(cuda_device, getattr(torch, dtype)) for _ in range(3))
-    torch.testing.assert_close(mha_flash(q, k, v).float(),
-                               mha_ref(q, k, v).float(), **tol)
+    got, want = mha_flash(q, k, v), mha_ref(q, k, v)
+    err = (got.float() - want.float()).abs()
+    assert bool((_fold(err) <= attention_limit(*map(_fold, (q, k, v, want)))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,window", LIMIT_SHAPES)
+def test_cuda_flash_attention_bf16_within_limit(cuda_device, s, d, window,
+                                                monkeypatch):
+    """The tensor-core kernel against the plain version, element by element
+    within ``attention_limit``, and its launch counted once."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) for x in _bf16_inputs(s + d + (window or 0), s, d))
+    want = attention_ref(q, k, v, window=window)
+    before = FA_LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, window=window, bq=32, bk=32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert FA_LAUNCHES["flash_attention"] == before + 1
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
+    assert rms_ratio(got, want) <= BF16_RMS_LIMIT

@@ -312,3 +312,62 @@ def test_cuda_kernel_matches_plain(cuda_device):
             assert torch.equal(got.cpu(), want), (atoms[:3], m)
             variant = "sets" if m else "cmp"
             assert LAUNCHES[variant] == before[variant] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,pure", [(1, False), (8, False), (64, False),
+                                    (600, False), (1, True)])
+def test_cuda_set_search_matches_plain(cuda_device, k, pure):
+    """The set variant's lock-step search, bit for bit against the plain
+    version: segment lengths 0, 1, 2 and around powers of two (where the
+    number of halvings changes) and 65,536; INT32_MIN and INT32_MAX as keys
+    and as column values; duplicates; compare and IN atoms mixed (or the
+    scan backend's pure membership); whole blocks zone-pruned; up to 1,200
+    segments in one launch."""
+    rng = np.random.default_rng(900 + k + pure)
+    i32 = np.iinfo(np.int32)
+    n = 1024 * 24
+    cols = np.stack([np.arange(n),                               # sorted
+                     np.sort(rng.integers(-2000, 2000, n)),      # sorted
+                     rng.integers(-2000, 2000, n)]).astype(np.int32)
+    cols[1, :3], cols[1, -3:] = i32.min, i32.max
+    cols[2, 5::97], cols[2, 7::89] = i32.min, i32.max
+    set_cols = (1,) if pure else (1, 2)
+    m = len(set_cols)
+    lengths = [0, 1, 2, 3, 4, 5, 7, 8, 9, 255, 256, 257]
+    key_sets = [[None] * m for _ in range(k)]
+    for seg in range(k * m):
+        ln = 1 << 16 if seg == 0 else lengths[7 * seg % len(lengths)]
+        if seg % 4 == 3:  # duplicates
+            keys = np.sort(rng.integers(-2500, 2500, ln))
+        else:  # short sets over the columns' range, so that rows hit them
+            pool = np.arange(-40_000, 40_000) if ln > 4000 else np.arange(-2500, 2500)
+            keys = np.sort(rng.choice(pool, ln, replace=False))
+        if ln >= 2 and seg % 3 == 0:
+            keys[0], keys[-1] = i32.min, i32.max
+        key_sets[seg // m][seg % m] = keys.astype(np.int32)
+    if pure:  # the tautology atom the scan backend launches membership with
+        atoms = ((1, OPS[">="]),)
+        thr = np.full((k, 1), i32.min, np.int32)
+    else:  # the first half of the blocks fails col 0 for every binding
+        atoms = ((0, OPS[">="]), (2, OPS["!="]))
+        thr = np.stack([rng.integers(n // 2, 3 * n // 4, k),
+                        rng.integers(-2000, 2000, k)], axis=1).astype(np.int32)
+    slab, off, ln, mx = _sets(key_sets, k, m)
+    lo, hi = block_bounds(cols, 1024, tuple(c for c, _ in atoms) + set_cols)
+    kw = dict(set_cols=set_cols, set_slab=torch.from_numpy(slab),
+              set_off=torch.from_numpy(off), set_len=torch.from_numpy(ln),
+              iters=search_iters(mx))
+    args = (torch.from_numpy(cols), torch.from_numpy(thr), atoms,
+            torch.from_numpy(lo), torch.from_numpy(hi))
+    want = pred_filter_batch(*args, **kw)
+    assert want.any() and not want.all()
+    before = dict(LAUNCHES)
+    got = pred_filter_batch(
+        *[a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args],
+        **{key: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+           for key, v in kw.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert LAUNCHES["sets"] == before["sets"] + 1
+    assert LAUNCHES["cmp"] == before["cmp"]
