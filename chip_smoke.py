@@ -22,13 +22,17 @@ Phases, each printing one JSON line:
                  the numpy backend's, and the forced run must launch both
                  kernel variants.  The forced run's launches keep their
                  operands; afterwards each is replayed against the plain
-                 version with times and bound (``main_path_kernel`` lines),
-                 and the kernels line reports K1 and K2 at these shapes.
+                 version with times and bound (``main_path_kernel`` lines;
+                 a launch of one binding of one atom also against the single
+                 PyTorch comparison that computes it, its library
+                 yardstick, both also timed with the L2 flushed), and the
+                 kernels line reports K1 and K2 at these shapes.
 6. entry points — the three other kernels through their own entry points,
                  with every launch count at 0 just before: ``scan_mask`` (K3,
                  TPC-H q6's int32 atoms over phase 5's lineitem), ``probe``
                  (K4, ``l_orderkey`` against sets of 5,000 and 65,536 keys and
-                 q3's order keys) and ``mha_flash`` (K5, the attention widths
+                 q3's order keys; timed also on random values) and
+                 ``mha_flash`` (K5, the attention widths
                  of llama3.2-3b and hymba-1.5b at S = 4,096 in bf16, and
                  llama3.2-3b at S = 1,024 in float32).  Each answer is checked
                  (the numpy mask, ``torch.isin``, the plain attention within
@@ -89,6 +93,8 @@ ATTN_CASES = (
 # kernel vs plain attention: ``attention_limit`` (kernels/flash_attn/ref.py)
 # per element; float32 2e-5 + 2e-5 |want|; bf16 one ulp of the value (2**-7
 # of it) plus 2**-8 (A |V|) for P rounded to bf16 before P V, plus 1e-3
+# the PyTorch call that computes K1 at one binding of one atom, by op code
+TORCH_COMPARE = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
 CUTOVER_ENV = ("PREDTRACE_DEVICE_CUTOVER", "PREDTRACE_MEMBER_CUTOVER",
                "PREDTRACE_RLE_CUTOVER")
 
@@ -124,6 +130,30 @@ def time_ms(fn, reps: int = 20, inner: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return float(statistics.median(times))
+
+
+def time_ms_cold(fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn`` right after 256 MB are
+    written, which evicts the 50 MB L2: what a caller that finds its
+    operands in device memory, not in L2, waits.  ``time_ms`` repeats the
+    call back to back, so operands under 50 MB stay in L2 there.  A spin
+    kernel (no memory traffic) between the flush and the start event keeps
+    the host's launch work out of the timed span."""
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.fill_(reps)
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
     return float(statistics.median(times))
 
 
@@ -258,6 +288,17 @@ def measure_batch(phase, label, args, meta, copy_bps=None, library=False,
     nops = meta["k"] * rows_alive * (meta["a"] + meta["m"] * (iters + 1))
     bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / ALU_OPS_PER_S) * 1e3
     library_ms = k4_ms = None
+    cold = {}
+    if meta["m"] == 0 and meta["k"] == 1 and meta["a"] == 1:
+        # one binding of one atom: a single PyTorch comparison computes it
+        (ci, op), = args["atoms"]
+        col, t = args["cols"][ci], int(args["thresholds"][0, 0])
+        compare = TORCH_COMPARE[op]
+        if not torch.equal(compare(col, t), want[0]):
+            raise AssertionError(f"{label}: torch.{compare.__name__} disagrees")
+        library_ms = time_ms(lambda: compare(col, t))
+        cold = dict(ms_cold=time_ms_cold(lambda: pred_filter_batch(**args)),
+                    library_ms_cold=time_ms_cold(lambda: compare(col, t)))
     if library:
         from repro_torch.kernels.membership.membership import launch_sorted
 
@@ -279,7 +320,7 @@ def measure_batch(phase, label, args, meta, copy_bps=None, library=False,
                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                >= nops / ALU_OPS_PER_S else "operations",
                bound_ms_copy=(nbytes / copy_bps * 1e3) if copy_bps else None,
-               library_ms=library_ms, k4_kernel_ms=k4_ms, **extra)
+               library_ms=library_ms, k4_kernel_ms=k4_ms, **cold, **extra)
     emit({"phase": phase, **rec})
     del got, want
     torch.cuda.empty_cache()
@@ -688,8 +729,29 @@ def phase_entry_kernels(inp, secs) -> dict:
             nbytes=4 * n + 4 * m + 4 * n, nops=n * (m.bit_length() + 1),
             ops_per_s=ALU_OPS_PER_S,
             library_ms=time_ms(lambda: torch.isin(vals, keys), inner=1),
-            set_keys=m, entry_s=secs[f"probe {name}"]))
-    del vals, got, want
+            set_keys=m, values="l_orderkey", entry_s=secs[f"probe {name}"]))
+    # K4 on random values: K2's pure-membership keys (65,536 draws below
+    # 2^20, de-duplicated) against as many random values as lineitem rows
+    rng = np.random.default_rng(7)
+    rvals = torch.from_numpy(rng.integers(0, 1 << 20, vals.numel(),
+                                          dtype=np.int32)).cuda()
+    keys = torch.from_numpy(np.unique(rng.integers(0, 1 << 20, 1 << 16,
+                                                   dtype=np.int32))).cuda()
+    got = launch_sorted(rvals, keys)
+    want = membership_ref(rvals, keys)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K4 random values: kernel differs from its plain version")
+    n, m = rvals.numel(), keys.numel()
+    recs["membership"].append(case_record(
+        f"K4 random values in {m} random keys, n={n}", got, want,
+        time_ms(lambda: launch_sorted(rvals, keys)),
+        time_ms(lambda: membership_ref(rvals, keys), inner=1),
+        nbytes=4 * n + 4 * m + 4 * n, nops=n * (m.bit_length() + 1),
+        ops_per_s=ALU_OPS_PER_S,
+        library_ms=time_ms(lambda: torch.isin(rvals, keys), inner=1),
+        set_keys=m, values="random"))
+    del vals, rvals, got, want
     # K5: the kernel on the folded [BH, S, D] inputs; SDPA on [B, H, S, D]
     for (name, cfg, dt, s, h, d, window), (q, k, v) in zip(ATTN_CASES,
                                                             inp["attn"]):
@@ -827,7 +889,9 @@ def main() -> None:
         entry("pred_filter (single binding, K3)", recs["single"], "single",
               entry_launches),
         entry("membership (K4)", recs["membership"], "membership",
-              entry_launches, f"{kdir}/membership/csrc/membership.cu", pick=-1),
+              entry_launches, f"{kdir}/membership/csrc/membership.cu",
+              pick=next(i for i, r in enumerate(recs["membership"])
+                        if "q3 orders" in r["case"])),
         entry("flash_attention (K5)", recs["flash_attention"],
               "flash_attention", entry_launches,
               f"{kdir}/flash_attn/csrc/flash_attn.cu"),

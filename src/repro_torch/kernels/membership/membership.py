@@ -6,15 +6,18 @@ ascending; :func:`membership` sorts the set on the device before the launch.
 That sort is set-up, not the membership function, and it lets a caller pass
 any set: unsorted, duplicated, of any length.  ``probe`` holds
 ``np.unique``'s sorted set already and launches :func:`launch_sorted`
-without it.  Dispatch is by the device of the tensors: CPU
-tensors take the plain PyTorch version (``ref.py``, ``isin``); CUDA tensors
-launch the kernel or raise, at every set size.
+without it.  Each CTA stages the set in shared memory when it has at most
+``SMEM_KEYS`` keys, else a fence index, the last key of every aligned
+``step``-key range (:func:`fence_plan`), and searches there first.
+Dispatch is by the device of the tensors: CPU tensors take the plain
+PyTorch version (``ref.py``, ``isin``); CUDA tensors launch the kernel or
+raise, at every set size.
 """
 
 from __future__ import annotations
 
 from ctypes import c_int64, c_void_p
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,6 +27,14 @@ BLOCK_ROWS = 1024
 # the TPU kernel's set tile; the CUDA kernel takes a set of any length, so
 # nothing pads to it
 SET_TILE = 256
+
+# the kernel's staging limits (kSmemKeys, kFenceKeys and kBlockKeys in
+# csrc/membership.cu): a set of at most SMEM_KEYS keys is staged whole, a
+# larger one as at most FENCE_KEYS fences, whose ranges the search narrows
+# to aligned blocks of BLOCK_KEYS keys
+SMEM_KEYS = 57_344
+FENCE_KEYS = 16_384
+BLOCK_KEYS = 8
 
 # kernel launches, bumped where the kernel is launched and nowhere else
 LAUNCHES: Dict[str, int] = {"membership": 0}
@@ -36,6 +47,19 @@ _ARGS = (c_void_p, c_int64, c_void_p, c_int64, c_void_p, c_void_p)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def fence_plan(m: int) -> Tuple[int, int]:
+    """``(staged, step)`` of the kernel for a set of ``m`` keys: ``step`` 1
+    stages the set whole; else ``step`` is a power of two, at least
+    ``BLOCK_KEYS``, and the last key of each of the ``staged`` aligned
+    ranges of ``step`` keys is staged."""
+    if m <= SMEM_KEYS:
+        return m, 1
+    step = BLOCK_KEYS
+    while step * FENCE_KEYS < m:
+        step *= 2
+    return -(-m // step), step
 
 
 def membership(
@@ -70,6 +94,8 @@ def launch_sorted(values: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     for name, t in (("values", values), ("set", keys)):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
+    if keys.numel() > SMEM_KEYS and keys.data_ptr() % 16:
+        keys = keys.clone()  # the kernel reads a large set 16 bytes at a time
     out = torch.empty(values.shape[0], dtype=torch.int32, device=dev)
     launch = launcher("membership_launch", *_ARGS)
     with torch.cuda.device(dev):

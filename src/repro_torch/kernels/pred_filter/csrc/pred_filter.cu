@@ -3,54 +3,65 @@
 //
 // Replaces the TPU kernel ``pred_filter_batch`` of the reference package
 // (src/repro/kernels/pred_filter/pred_filter.py), both of its variants:
-// ``_kernel_batch`` (comparison atoms) and ``_kernel_batch_sets`` (comparison
-// atoms plus ``IN`` atoms searched in sorted per-binding set segments).
-// It computes what the TPU kernel computes, bit for bit.  The file also holds
-// the single-binding ``pred_filter`` (``_kernel`` there), at the end.
+// ``_kernel_batch`` (comparison atoms; ``pred_filter_cmp_kernel`` here) and
+// ``_kernel_batch_sets`` (comparison atoms plus ``IN`` atoms searched in
+// sorted per-binding set segments; ``pred_filter_batch_kernel`` here).
+// Both compute what the TPU kernel computes, bit for bit.  The file also
+// holds the single-binding ``pred_filter`` (``_kernel`` there), at the end.
 //
 // What it computes: for K bindings (rows of ``thr [K, A]``), the
 // conjunction of A atoms ``col[atom_col[j]] <op[j]> thr[k, j]`` and M set
 // atoms ``col[set_col[m]] IN slab[off[k, m] : off[k, m] + len[k, m]]`` over
 // an int32 column slab ``cols [C, N]``; the result is a ``[K, N]`` byte mask
-// (0/1, read as torch.bool).
+// (0/1, read as torch.bool).  The output is bytes, not the TPU kernel's
+// int32: a quarter of the device-to-host readback.
 //
 // Bound on this card: memory.  Every referenced column is read once
 // (4 bytes a row each) and K bytes a row are written; the compares and the
 // log2(|set|) probes of a row are far fewer operations than its bytes take
-// to move at the card's memory rate.  The comparison variant runs near that
-// bound; the set variant is held above it by its searches (below).  The
-// design:
-//   * one CTA per zone block of ``block_rows`` rows (1024 on the main path),
-//     4 consecutive rows per thread, so column loads are 16-byte vector
-//     loads and mask stores are 4-byte vector stores, both coalesced;
-//   * phase 1 evaluates, from the block's [lo, hi] bounds alone, which
-//     bindings can match (``alive[k]`` in shared memory); a block no binding
-//     can match writes zeros and never reads its columns
-//     (``__syncthreads_or``), as the TPU kernel's ``pl.when`` early-out does;
-//   * phase 2 loops over the K bindings, ANDing the A compares and the M
-//     segment searches, and stores one byte per (binding, row); the column
-//     values of 4 compare atoms at a time are loaded together with __ldg
-//     (independent loads, so their latencies overlap), the first binding's
-//     reads come from memory and the later bindings' repeat reads hit L1;
-//   * the output is bytes, not the TPU kernel's int32: a quarter of the
-//     device-to-host readback.
-// The IN atoms are where the time goes: a row's lower-bound search is a
-// chain of scattered reads, and over random keys those reads, not the
-// columns' bytes, set the time (K4's lock-step search takes as long on the
-// same keys, and half as long on sorted ones).  The set slab (at most 65,536
-// keys on the main path, more than a block's shared memory) stays in global
-// memory and L2.  The 4 rows of a thread are searched in lock step: a fixed
-// number of halvings, bit_length(len) of the segment (not the reference's
-// ``iters``), so 4 independent loads are in flight at each step; a row that
-// a compare atom killed searches an empty range at the segment's start, so
-// its probes merge with every other dead row's into one broadcast read.
-// The search ends at the exact lower bound of the key in its sorted
-// segment, which is also where the reference's ``iters`` halvings end when
-// ``iters`` = search_iters(longest segment), as its callers pass it; so the
-// masks are bit-identical.  ``iters`` bounds only the zone phase's search.
-// No index of the set is staged in shared memory: each CTA would stage it
-// for its one zone block, and on the main path's launches (q12: K = 1, a
-// 2-key set) that staging cost more than the steps it saved (PERF.md).
+// to move at the card's memory rate.
+//
+// Comparison variant (M = 0, the main path's largest launches).  What held
+// the first design (one CTA per 1024-row zone block) to a third of the
+// bound: each CTA read its block's bounds and thresholds, waited at a
+// CTA-wide barrier, and only then loaded its 4 KB of column; two dependent
+// DRAM round trips per 4 KB, with at most 8 such CTAs on an SM, kept too
+// few bytes in flight.  For K > 1 it reloaded every column through L1 once
+// per binding.  ``pred_filter_cmp_kernel`` instead:
+//   * runs a persistent grid: a few CTAs an SM, each warp owning whole zone
+//     blocks in a grid stride, so there is no CTA-wide barrier at all;
+//   * decides a block's live bindings with a warp vote (``__ballot_sync``;
+//     for K = 1 the lanes split the atoms and vote with ``__all_sync``) into
+//     an alive bitmap in shared memory, and decides the *next* block's
+//     bitmap while the current block's column loads are in flight (two
+//     bitmaps a warp, used in turn);
+//   * keeps 8 (one atom) or 16 (more atoms) 16-byte column loads in flight
+//     a lane: a pass covers 8 or 4 chunks of 128 rows, one int4 a lane a
+//     chunk, so every load and every mask store of a warp is coalesced;
+//   * reads each held column of a pass (the first 1 or 4 atoms) once into
+//     registers and reuses it for all K bindings; atoms past those are read
+//     per binding through L1;
+//   * writes a dead block's zero tile with 16-byte stores and never reads
+//     its columns, as the TPU kernel's ``pl.when`` early-out does.
+// Set variant (M > 0): the IN atoms are where the time goes: a row's
+// lower-bound search is a chain of scattered reads, and over random keys
+// those reads, not the columns' bytes, set the time.  It keeps its own
+// kernel, one CTA per zone block (block decision in ``alive[]`` shared
+// memory, ``__syncthreads_or`` early-out), because its time is the search
+// and not the schedule.  The set slab (at most 65,536 keys on the main path,
+// more than a block's shared memory) stays in global memory and L2.  The 4
+// rows of a thread are searched in lock step: a fixed number of halvings,
+// bit_length(len) of the segment (not the reference's ``iters``), so 4
+// independent loads are in flight at each step; a row that a compare atom
+// killed searches an empty range at the segment's start, so its probes
+// merge with every other dead row's into one broadcast read.  The search
+// ends at the exact lower bound of the key in its sorted segment, which is
+// also where the reference's ``iters`` halvings end when ``iters`` =
+// search_iters(longest segment), as its callers pass it; so the masks are
+// bit-identical.  ``iters`` bounds only the zone phase's search.  No index
+// of the set is staged in shared memory: each CTA would stage it for its
+// one zone block, and on the main path's launches (q12: K = 1, a 2-key set)
+// that staging cost more than the steps it saved (PERF.md).
 // The atom program (atom columns, atom ops, set columns) is a runtime int32
 // array in device memory, uploaded with the thresholds, so a new predicate
 // structure needs no rebuild and a program may hold any number of atoms.
@@ -63,8 +74,9 @@ namespace {
 constexpr int kRowsPerThread = 4;
 // compare atoms whose column loads are issued together
 constexpr int kAtomChunk = 4;
-// bindings per launch: alive[] (one byte each) fits the default 48 KB of
-// shared memory; the launcher covers larger K with several launches
+// bindings per launch of the set kernel: alive[] (one byte each) fits the
+// default 48 KB of shared memory; the launcher covers larger K with several
+// launches
 constexpr int kMaxBindingsPerLaunch = 32768;
 
 // op codes shared with the host: 0:== 1:!= 2:< 3:<= 4:> 5:>=
@@ -235,14 +247,241 @@ __global__ void pred_filter_batch_kernel(
   }
 }
 
+// ---- comparison variant (M = 0) -----------------------------------------
+
+constexpr int kCmpThreads = 256;
+constexpr int kCmpWarps = kCmpThreads / 32;
+// rows of a chunk: 32 lanes x one int4 (4 rows) each
+constexpr int kChunkRows = 128;
+// bindings per launch of the comparison kernel: a warp keeps two alive
+// bitmaps of ceil(K / 32) words, 16 KB of shared memory a CTA at 8,192
+constexpr int kMaxCmpBindingsPerLaunch = 8192;
+
+__device__ __forceinline__ uint32_t pack4(bool x, bool y, bool z, bool w) {
+  return static_cast<uint32_t>(x) | (static_cast<uint32_t>(y) << 8) |
+         (static_cast<uint32_t>(z) << 16) | (static_cast<uint32_t>(w) << 24);
+}
+
+// 4 rows against one threshold, as 4 mask bytes (0/1) in one word: a
+// binding's words are ANDed atom by atom and stored as they are (packing
+// each compare at once measured faster than chaining predicates across
+// atoms, which run out of predicate registers at 32 rows a lane)
+__device__ __forceinline__ uint32_t cmp4(int op, int4 v, int t) {
+  switch (op) {
+    case 0: return pack4(v.x == t, v.y == t, v.z == t, v.w == t);
+    case 1: return pack4(v.x != t, v.y != t, v.z != t, v.w != t);
+    case 2: return pack4(v.x < t, v.y < t, v.z < t, v.w < t);
+    case 3: return pack4(v.x <= t, v.y <= t, v.z <= t, v.w <= t);
+    case 4: return pack4(v.x > t, v.y > t, v.z > t, v.w > t);
+    default: return pack4(v.x >= t, v.y >= t, v.z >= t, v.w >= t);
+  }
+}
+
+// The warp's alive bitmap of zone block ``blk``: bit k % 32 of words[k / 32]
+// says whether binding k can match, from the block's bounds alone.  Returns
+// whether any binding can.  Every lane of the warp calls it.
+__device__ __forceinline__ bool cmp_zone(
+    int64_t blk, int kc, int a, const int32_t* __restrict__ thr,
+    const int32_t* __restrict__ atom_op, const int32_t* __restrict__ blk_lo,
+    const int32_t* __restrict__ blk_hi, int64_t g, uint32_t* words,
+    int lane) {
+  uint32_t any = 0;
+  if (kc == 1) {  // one binding: the lanes split its atoms
+    bool ok = true;
+    for (int j = lane; j < a; j += 32) {
+      ok = ok & zone_alive(__ldg(atom_op + j), __ldg(blk_lo + j * g + blk),
+                           __ldg(blk_hi + j * g + blk), __ldg(thr + j));
+    }
+    any = __all_sync(0xffffffffu, ok) ? 1u : 0u;
+    if (lane == 0) words[0] = any;
+  } else {  // a lane a binding, 32 bindings a vote
+    for (int w = 0; w * 32 < kc; ++w) {
+      const int k = w * 32 + lane;
+      bool ok = k < kc;
+      if (ok) {
+        const int32_t* t = thr + (int64_t)k * a;
+#pragma unroll 4
+        for (int j = 0; j < a; ++j) {
+          ok = ok & zone_alive(__ldg(atom_op + j), __ldg(blk_lo + j * g + blk),
+                               __ldg(blk_hi + j * g + blk), __ldg(t + j));
+        }
+      }
+      const uint32_t word = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) words[w] = word;
+      any |= word;
+    }
+  }
+  __syncwarp();
+  return any != 0;
+}
+
+// P chunks of 128 rows a pass (P int4 loads a lane per held atom); the
+// first H atoms of a pass are held in registers for all K bindings; kMore:
+// the program may have atoms past those.
+// prog = [atom_col[a], atom_op[a]]
+template <int P, int H, int kMinBlocks, bool kMore>
+__global__ void __launch_bounds__(kCmpThreads, kMinBlocks)
+pred_filter_cmp_kernel(const int32_t* __restrict__ cols, int64_t n,
+                       int block_rows, const int32_t* __restrict__ thr,
+                       int kc, int a, const int32_t* __restrict__ prog,
+                       const int32_t* __restrict__ blk_lo,
+                       const int32_t* __restrict__ blk_hi, int64_t g,
+                       uint8_t* __restrict__ out) {
+  extern __shared__ uint32_t alive_bits[];  // [warps][2][ceil(kc / 32)]
+  const int32_t* atom_col = prog;
+  const int32_t* atom_op = prog + a;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int words = (kc + 31) >> 5;
+  uint32_t* const bits = alive_bits + warp * 2 * words;
+  const int chunks = block_rows / kChunkRows;
+  const int held = min(a, H);
+  const int64_t stride = (int64_t)gridDim.x * kCmpWarps;
+  int64_t blk = (int64_t)blockIdx.x * kCmpWarps + warp;
+  if (blk >= g) return;
+  int cur = 0;  // which of the warp's two bitmaps is this block's
+  bool any = cmp_zone(blk, kc, a, thr, atom_op, blk_lo, blk_hi, g, bits,
+                      lane);
+  for (; blk < g; blk += stride) {
+    const int64_t next = blk + stride;
+    const int64_t row_blk = blk * block_rows;
+    const uint32_t* alive = bits + cur * words;
+    uint32_t* alive_next = bits + (cur ^ 1) * words;
+    bool any_next = false;
+    if (!any) {
+      // no binding can match: a zero tile, 16-byte stores, no column read
+      for (int k = 0; k < kc; ++k) {
+        uint4* o = reinterpret_cast<uint4*>(out + (int64_t)k * n + row_blk);
+        for (int i = lane; i < block_rows / 16; i += 32) {
+          o[i] = make_uint4(0, 0, 0, 0);
+        }
+      }
+      if (next < g) {
+        any_next = cmp_zone(next, kc, a, thr, atom_op, blk_lo, blk_hi, g,
+                            alive_next, lane);
+      }
+    } else {
+      for (int c0 = 0; c0 < chunks; c0 += P) {
+        // the pass's values of the held atoms, loaded once for all bindings
+        int op[H];
+        int4 v[H][P];
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          op[h] = 0;
+#pragma unroll
+          for (int p = 0; p < P; ++p) v[h][p] = make_int4(0, 0, 0, 0);
+          if (h < held) {
+            op[h] = __ldg(atom_op + h);
+            const int32_t* c = cols + (int64_t)__ldg(atom_col + h) * n +
+                               row_blk + c0 * kChunkRows + lane * 4;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              if (c0 + p < chunks) {
+                v[h][p] = __ldg(reinterpret_cast<const int4*>(c + p * kChunkRows));
+              }
+            }
+          }
+        }
+        // the next block's zone decision, while these loads are in flight
+        if (c0 == 0 && next < g) {
+          any_next = cmp_zone(next, kc, a, thr, atom_op, blk_lo, blk_hi, g,
+                              alive_next, lane);
+        }
+        for (int k = 0; k < kc; ++k) {
+          const bool live = (alive[k >> 5] >> (k & 31)) & 1u;
+          uint32_t r[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) r[p] = live ? 0x01010101u : 0u;
+          if (live) {
+            const int32_t* t = thr + (int64_t)k * a;
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+              if (h < held) {
+                const int th = __ldg(t + h);
+#pragma unroll
+                for (int p = 0; p < P; ++p) r[p] &= cmp4(op[h], v[h][p], th);
+              }
+            }
+            // atoms past the held ones, one at a time, read through L1 for
+            // each binding, until the lane's rows are all dead
+            if constexpr (kMore) {
+              for (int j = H; j < a; ++j) {
+                uint32_t rows_live = 0;
+#pragma unroll
+                for (int p = 0; p < P; ++p) rows_live |= r[p];
+                if (!rows_live) break;
+                const int opj = __ldg(atom_op + j);
+                const int tj = __ldg(t + j);
+                const int32_t* c = cols + (int64_t)__ldg(atom_col + j) * n +
+                                   row_blk + c0 * kChunkRows + lane * 4;
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                  if (c0 + p < chunks) {
+                    r[p] &= cmp4(opj, __ldg(reinterpret_cast<const int4*>(
+                                          c + p * kChunkRows)),
+                                 tj);
+                  }
+                }
+              }
+            }
+          }
+          uint8_t* o = out + (int64_t)k * n + row_blk + c0 * kChunkRows + lane * 4;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            if (c0 + p < chunks) {
+              *reinterpret_cast<uint32_t*>(o + p * kChunkRows) = r[p];
+            }
+          }
+        }
+      }
+    }
+    any = any_next;
+    cur ^= 1;
+  }
+}
+
+// One launch of the comparison kernel per binding slice, on a persistent
+// grid: as many CTAs as fit the card at once (occupancy at this shared
+// memory), never more than the zone blocks need.
+template <int P, int H, int kMinBlocks, bool kMore>
+int launch_cmp(const int32_t* cols, int64_t n, int block_rows,
+               const int32_t* thr, int k_bind, int a, const int32_t* prog,
+               const int32_t* blk_lo, const int32_t* blk_hi, int64_t g,
+               uint8_t* out, cudaStream_t stream) {
+  const auto kernel = pred_filter_cmp_kernel<P, H, kMinBlocks, kMore>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int k0 = 0; k0 < k_bind; k0 += kMaxCmpBindingsPerLaunch) {
+    const int kc = min(k_bind - k0, kMaxCmpBindingsPerLaunch);
+    const size_t smem = sizeof(uint32_t) * kCmpWarps * 2 * ((kc + 31) / 32);
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kCmpThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t need = (g + kCmpWarps - 1) / kCmpWarps;
+    const int64_t fit = (int64_t)sms * max(per_sm, 1);
+    kernel<<<static_cast<unsigned>(min(need, fit)), kCmpThreads, smem,
+             stream>>>(cols, n, block_rows, thr + (int64_t)k0 * a, kc, a,
+                       prog, blk_lo, blk_hi, g, out + (int64_t)k0 * n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Launches one fused scan on ``stream`` (several launches when k_bind
-// exceeds kMaxBindingsPerLaunch).  Device pointers: cols [c, n], thr [k, a],
+// exceeds a kernel's bindings per launch): the comparison kernel when m is
+// 0, the set kernel otherwise.  Device pointers: cols [c, n], thr [k, a],
 // prog [2a + m] (atom columns, atom ops, set columns), blk_lo/blk_hi
 // [a + m, n / block_rows], slab [s], set_off/set_len [k, m], out [k, n].
 // Requires n a multiple of block_rows, block_rows a multiple of 128 and at
-// most 4096, cols 16-byte and out 4-byte aligned, and s >= 1 when m > 0.
+// most 4096, cols and out 16-byte aligned, and s >= 1 when m > 0.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int pred_filter_batch_launch(
     const int32_t* cols, int64_t n, int block_rows, const int32_t* thr,
@@ -254,19 +493,28 @@ extern "C" int pred_filter_batch_launch(
       n < 0 || n % block_rows != 0 || (m > 0 && s < 1) ||
       (a + m > 0 && prog == nullptr) ||
       reinterpret_cast<uintptr_t>(cols) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 4 != 0) {
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = block_rows / kRowsPerThread;
   const int64_t g = n / block_rows;
-  if (g == 0) return 0;
+  if (g == 0 || k_bind == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == 0) {
+    // one atom: 8 chunks (1,024 rows) a pass; more: 4 chunks, 4 atoms held
+    if (a <= 1) {
+      return launch_cmp<8, 1, 3, false>(cols, n, block_rows, thr, k_bind, a, prog,
+                                 blk_lo, blk_hi, g, out, st);
+    }
+    return launch_cmp<4, 4, 2, true>(cols, n, block_rows, thr, k_bind, a, prog,
+                               blk_lo, blk_hi, g, out, st);
+  }
+  const int threads = block_rows / kRowsPerThread;
   for (int k0 = 0; k0 < k_bind; k0 += kMaxBindingsPerLaunch) {
     const int kc = min(k_bind - k0, kMaxBindingsPerLaunch);
-    pred_filter_batch_kernel<<<static_cast<unsigned>(g), threads, kc,
-                               static_cast<cudaStream_t>(stream)>>>(
+    pred_filter_batch_kernel<<<static_cast<unsigned>(g), threads, kc, st>>>(
         cols, n, thr + (int64_t)k0 * a, kc, a, m, prog, blk_lo, blk_hi, g,
-        slab, s, m ? set_off + (int64_t)k0 * m : nullptr,
-        m ? set_len + (int64_t)k0 * m : nullptr, iters, out + (int64_t)k0 * n);
+        slab, s, set_off + (int64_t)k0 * m, set_len + (int64_t)k0 * m, iters,
+        out + (int64_t)k0 * n);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -22,7 +22,9 @@ helpers, so those cases also run where JAX is not installed:
 
 from __future__ import annotations
 
+import inspect
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,6 +48,13 @@ from repro_torch.kernels.membership import (
     SENTINEL,
     membership,
     probe,
+)
+from repro_torch.kernels.membership.membership import (
+    BLOCK_KEYS,
+    FENCE_KEYS,
+    SMEM_KEYS,
+    fence_plan,
+    launch_sorted,
 )
 from repro_torch.kernels.pred_filter import (
     LAUNCHES as PF_LAUNCHES,
@@ -244,6 +253,98 @@ def test_launch_sorted_takes_only_cuda_tensors():
     x = torch.arange(10, dtype=torch.int32)
     with pytest.raises(ValueError):
         launch_sorted(x, x)
+
+
+def _emulate_k4(values: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """Numpy mirror of ``csrc/membership.cu``'s two-level search over the
+    sorted ``keys``: the lower bound among the staged keys (the set itself,
+    or the last key of every aligned ``step``-key range) by branch-free
+    halving of one length for every value; with ranges, the halving of the
+    range on each half's last key (reads past the set clamped) down to an
+    aligned block of ``BLOCK_KEYS`` keys, which is compared whole."""
+    m = keys.size
+    f, step = fence_plan(m)
+    if f == 0:
+        return np.zeros(values.shape, bool)
+    arr = keys.astype(np.int64)
+    idx = np.arange(f) if step == 1 else np.minimum((np.arange(f) + 1) * step, m) - 1
+    fence = arr[idx]
+    key = values.astype(np.int64)
+    b = np.zeros(key.shape, np.int64)
+    length = f
+    while length > 1:
+        half = length >> 1
+        assert (b + half <= f - 1).all()  # level 1 reads need no clamp
+        b = np.where(fence[b + half] < key, b + half, b)
+        length -= half
+    if step == 1:
+        v0, v1 = fence[b], fence[np.minimum(b + 1, f - 1)]
+        return (v0 == key) | ((b + 1 < f) & (v0 < key) & (v1 == key))
+    b = (b + (fence[b] < key)) * step
+    length = step
+    while length > BLOCK_KEYS:
+        half = length >> 1
+        b = np.where(arr[np.minimum(b + half - 1, m - 1)] < key, b + half, b)
+        length = half
+    assert (b % BLOCK_KEYS == 0).all()
+    hit = np.zeros(key.shape, bool)
+    for j in range(BLOCK_KEYS):  # the block, keys past the set excluded
+        hit |= (b + j < m) & (arr[np.minimum(b + j, m - 1)] == key)
+    return hit
+
+
+# set sizes around the staging limits: whole set in shared memory up to
+# SMEM_KEYS keys; past it, fence counts around FENCE_KEYS (131,071 / 131,072
+# / 131,073 keys: one key short of, at and one past FENCE_KEYS ranges of 8
+# keys, the last range then partial, full, and 16 keys a range); 2^16 and
+# q3's 729,395 order keys
+K4_SIZES = [0, 1, 2, SMEM_KEYS - 1, SMEM_KEYS, SMEM_KEYS + 1, 1 << 16,
+            8 * FENCE_KEYS - 1, 8 * FENCE_KEYS, 8 * FENCE_KEYS + 1, 729_395]
+
+
+def _k4_case(m: int, order: str, n: int, seed: int):
+    """A sorted set of ``m`` keys (duplicated when ``order`` says so) with
+    the int32 extremes, and ``n`` values: sorted and grouped like
+    ``l_orderkey``, or in random order; half of them members."""
+    rng = np.random.default_rng(seed)
+    if order == "duplicated":
+        keys = np.sort(rng.integers(-(m // 2), m // 2 + 1, m))
+    else:
+        keys = np.sort(rng.choice(np.arange(-2 * m - 8, 2 * m + 8, 2), m,
+                                  replace=False))
+    keys = keys.astype(np.int64)
+    if m >= 2:
+        keys[0], keys[-1] = I32_MIN, I32_MAX
+    keys = keys.astype(np.int32)
+    hits = rng.choice(keys, n // 2) if m else np.zeros(n // 2, np.int32)
+    near = rng.integers(-2 * m - 10, 2 * m + 10, n - n // 2)
+    vals = np.concatenate([hits, near]).astype(np.int32)
+    vals[:4] = [I32_MIN, I32_MAX, I32_MIN + 1, I32_MAX - 1]
+    if order == "random":
+        vals = rng.permutation(vals)
+    else:  # grouped: each value repeated as an order's line items are
+        vals = np.sort(vals)
+    return vals, keys
+
+
+def test_membership_constants_match_kernel_source():
+    src = (Path(inspect.getfile(fence_plan)).parent / "csrc"
+           / "membership.cu").read_text()
+    assert f"constexpr int kSmemKeys = {SMEM_KEYS};" in src
+    assert f"constexpr int kFenceKeys = {FENCE_KEYS};" in src
+    assert f"constexpr int kBlockKeys = {BLOCK_KEYS};" in src
+    assert fence_plan(SMEM_KEYS) == (SMEM_KEYS, 1)
+    assert fence_plan(SMEM_KEYS + 1)[1] == BLOCK_KEYS
+    assert fence_plan(8 * FENCE_KEYS) == (FENCE_KEYS, 8)
+    assert fence_plan(8 * FENCE_KEYS + 1) == (FENCE_KEYS // 2 + 1, 16)
+    assert fence_plan(729_395) == (11_397, 64)
+
+
+@pytest.mark.parametrize("order", ["sorted", "random", "duplicated"])
+@pytest.mark.parametrize("m", K4_SIZES)
+def test_k4_two_level_search_equals_isin(m, order):
+    vals, keys = _k4_case(m, order, 20_000, seed=m + len(order))
+    np.testing.assert_array_equal(_emulate_k4(vals, keys), np.isin(vals, keys))
 
 
 # --------------------------------------------------------------------------- #
@@ -481,3 +582,35 @@ def test_cuda_flash_attention_bf16_within_limit(cuda_device, s, d, window,
     err = (got.float() - want.float()).abs()
     assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
     assert rms_ratio(got, want) <= BF16_RMS_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "random", "duplicated"])
+@pytest.mark.parametrize("m", K4_SIZES)
+def test_cuda_membership_staging_limits(cuda_device, m, order):
+    """K4 through ``launch_sorted`` (the kernel as ``probe`` launches it)
+    and ``membership`` (which sorts but keeps duplicates) equal to
+    ``np.isin`` at set sizes around the shared-memory and fence limits, on
+    grouped and random values, with ``n`` not a multiple of a CTA's 4,096
+    values."""
+    n = 8192 * 9 + 1000 + 5
+    vals, keys = _k4_case(m, order, n, seed=2000 + m + len(order))
+    want = np.isin(vals, keys)
+    before = MB_LAUNCHES["membership"]
+    got = launch_sorted(torch.from_numpy(vals).to(cuda_device),
+                        torch.from_numpy(keys).to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().astype(bool), want)
+    assert MB_LAUNCHES["membership"] == before + 1
+    # a set that does not start on 16 bytes: launch_sorted copies a large one
+    offset = torch.zeros(m + 1, dtype=torch.int32, device=cuda_device)
+    offset[1:] = torch.from_numpy(keys)
+    got = launch_sorted(torch.from_numpy(vals).to(cuda_device), offset[1:])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().astype(bool), want)
+    n_pad = n - n % 1024
+    shuffled = np.random.default_rng(m).permutation(keys)
+    got = membership(torch.from_numpy(vals[:n_pad]).to(cuda_device),
+                     torch.from_numpy(shuffled).to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().astype(bool), want[:n_pad])

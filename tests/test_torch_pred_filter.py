@@ -3,9 +3,9 @@
 The same numpy inputs, made from a seed, go through the reference's Pallas
 kernel (interpret mode), its zone-free oracle ``pred_filter_batch_ref`` and
 the port's wrapper on CPU tensors (its plain PyTorch version).  Masks must be
-exactly equal.  One case runs the CUDA kernel against the plain version and
-is skipped without a card; the reference package is imported inside the
-parity helpers, so that case also runs where JAX is not installed:
+exactly equal.  The cases that run the CUDA kernels against the plain
+version are skipped without a card; the reference package is imported inside
+the parity helpers, so those cases also run where JAX is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_pred_filter.py
 """
@@ -371,3 +371,140 @@ def test_cuda_set_search_matches_plain(cuda_device, k, pure):
     assert torch.equal(got.cpu(), want)
     assert LAUNCHES["sets"] == before["sets"] + 1
     assert LAUNCHES["cmp"] == before["cmp"]
+
+
+# --------------------------------------------------------------------------- #
+# the comparison kernel's persistent schedule (pred_filter_cmp_kernel)
+# --------------------------------------------------------------------------- #
+
+_CMP_WARPS = 8  # kCmpWarps: warps of a CTA, each owning whole zone blocks
+
+
+def _cmp_schedule_writes(g, block_rows, grid, p, alive):
+    """Mirror of the kernel's index arithmetic: how many times each mask
+    byte of one binding is written, given which zone blocks are alive.  A
+    warp walks blocks ``cta * 8 + warp`` in strides of ``grid * 8``; a live
+    block is stored in passes of ``p`` chunks of 128 rows, one 4-byte word a
+    lane a chunk; a dead one as a zero tile of 16-byte stores."""
+    writes = np.zeros(g * block_rows, np.int64)
+    chunks = block_rows // 128
+    lanes = np.arange(32)
+    for cta in range(grid):
+        for warp in range(_CMP_WARPS):
+            for blk in range(cta * _CMP_WARPS + warp, g, grid * _CMP_WARPS):
+                base = blk * block_rows
+                if alive[blk]:
+                    for c0 in range(0, chunks, p):
+                        for q in range(p):
+                            if c0 + q < chunks:
+                                start = base + (c0 + q) * 128 + lanes * 4
+                                for b in range(4):
+                                    writes[start + b] += 1
+                else:
+                    for i0 in range(0, block_rows // 16, 32):
+                        i = i0 + lanes[i0 + lanes < block_rows // 16]
+                        for b in range(16):
+                            writes[base + 16 * i + b] += 1
+    return writes
+
+
+@pytest.mark.parametrize("block_rows,p", [(128, 8), (256, 4), (1024, 8),
+                                         (1024, 4), (4096, 8), (640, 4)])
+@pytest.mark.parametrize("g,grid", [(1, 1), (37, 3), (100, 13), (1000, 4)])
+def test_cmp_schedule_writes_every_byte_once(block_rows, p, g, grid):
+    """Every zone block is visited by exactly one warp, and every mask byte
+    of a binding is written exactly once, live block or zero tile, for grids
+    that do not divide the blocks and passes that do not divide a block."""
+    grid = min(grid, -(-g // _CMP_WARPS))  # the launcher never starts more
+    alive = np.random.default_rng(g + block_rows).random(g) < 0.5
+    writes = _cmp_schedule_writes(g, block_rows, grid, p, alive)
+    assert (writes == 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,a,block_rows,kind", [
+    (1, 1, 1024, "mixed"),        # the main path's largest launch shape
+    (1, 4, 1024, "mixed"),
+    (8, 1, 256, "mixed"),
+    (16, 6, 1024, "mixed"),       # all six ops in one program
+    (64, 4, 4096, "mixed"),
+    (600, 2, 1024, "mixed"),
+    (8200, 1, 128, "mixed"),      # more than one launch's bindings
+    (1, 70, 1024, "mixed"),       # atoms past the ones held in registers
+    (8, 70, 512, "mixed"),
+    (1, 1, 1024, "all_pruned"),
+    (8, 4, 1024, "all_pruned"),
+    (1, 1, 1024, "none_pruned"),
+    (8, 4, 1024, "none_pruned"),
+])
+def test_cuda_cmp_kernel_matches_plain(cuda_device, k, a, block_rows, kind):
+    """The comparison kernel (no IN atoms) bit for bit against the plain
+    version: zone-block counts that the persistent grid does not divide
+    (3,301 blocks where memory allows), every block pruned or none, INT32
+    extremes as column values and thresholds, all six ops."""
+    i32 = np.iinfo(np.int32)
+    rng = np.random.default_rng(1300 + k + a + block_rows + len(kind))
+    g = max(3, min(3301, 40_000_000 // (k * block_rows)))
+    n = g * block_rows
+    cols = np.stack([np.sort(rng.integers(-10**6, 10**6, n)),     # prunable
+                     rng.integers(i32.min, i32.max, n, endpoint=True),
+                     rng.integers(-3, 4, n)]).astype(np.int32)
+    cols[1, 5::101], cols[1, 9::103] = i32.min, i32.max
+    cols[0, :2], cols[0, -2:] = i32.min, i32.max
+    # ops by column: ranges on the sorted column, == on the narrow one
+    col_ops = ((2, 5, 3, 4, 1), (1, 4, 3, 2, 5, 0), (0, 1, 3, 5, 2, 4))
+    atoms = tuple((j % 3, col_ops[j % 3][(j // 3) % len(col_ops[j % 3])])
+                  for j in range(a))
+    thr = np.empty((k, a), np.int64)
+    mid = rng.integers(-5 * 10**5, 5 * 10**5, k)  # a window of col 0
+    for j, (c, op) in enumerate(atoms):
+        if c == 0:
+            thr[:, j] = mid + {1: 0, 2: 2 * 10**5, 3: 2 * 10**5,
+                               4: -2 * 10**5, 5: -2 * 10**5}[op]
+        elif c == 1:
+            thr[:, j] = rng.integers(i32.min, i32.max, k, endpoint=True)
+            thr[1::3, j] = i32.min
+            thr[2::3, j] = i32.max
+        else:
+            thr[:, j] = rng.integers(-3, 4, k)
+    if a >= 8:  # long programs: loose atoms between selective ones
+        loose = {1: 12_345_678, 3: i32.max, 5: i32.min}
+        for j in range(4, a - 2):
+            op = (1, 3, 5)[j % 3]
+            atoms = atoms[:j] + ((j % 3, op),) + atoms[j + 1:]
+            thr[:, j] = loose[op]
+        # != a value other than atom 2's ==, so the two can both hold
+        atoms = atoms[:a - 2] + ((2, OPS["!="]), (1, OPS["<"]))
+        thr[:, a - 2] = (thr[:, 2] + 4) % 7 - 3
+        thr[:, a - 1] = rng.integers(i32.min // 2, i32.max // 2, k)
+    if kind == "all_pruned":  # col 0 < INT32_MIN: no block can match
+        atoms = ((0, OPS["<"]),) + atoms[1:]
+        thr[:, 0] = i32.min
+    elif kind == "none_pruned":  # col 0 >= INT32_MIN, binding 0 loose
+        loose = {0: 0, 1: 0, 2: i32.max, 3: i32.max, 4: i32.min, 5: i32.min}
+        for j, (c, op) in enumerate(atoms):
+            if c == 0:
+                atoms = atoms[:j] + ((0, OPS[">="]),) + atoms[j + 1:]
+                thr[:, j] = i32.min
+            else:
+                thr[0, j] = loose[op]
+    thr = thr.astype(np.int32)
+    lo, hi = block_bounds(cols, block_rows, tuple(c for c, _ in atoms))
+    skipped = port_scan._skipped_blocks(atoms, lo, hi, thr)
+    if kind == "all_pruned":
+        assert skipped == g
+    elif kind == "none_pruned":
+        assert skipped == 0
+    elif k == 1:
+        assert 0 < skipped < g
+    args = (torch.from_numpy(cols), torch.from_numpy(thr), atoms,
+            torch.from_numpy(lo), torch.from_numpy(hi))
+    want = pred_filter_batch(*args, block_rows=block_rows)
+    assert want.any() or kind == "all_pruned"
+    before = dict(LAUNCHES)
+    got = pred_filter_batch(*[x.to(cuda_device) if isinstance(x, torch.Tensor)
+                              else x for x in args], block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert LAUNCHES["cmp"] == before["cmp"] + 1
+    assert LAUNCHES["sets"] == before["sets"]
