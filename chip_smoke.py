@@ -43,6 +43,31 @@ Phases, each printing one JSON line:
                  the per-element limit and RMS(err) / RMS(want), held in
                  bf16 to ``BF16_RMS_LIMIT``, which a control that rounds
                  the scores to bf16 must fail.
+7. serve       — run between phases 5 and 6 on phase 5's catalog: q3 and
+                 q12 through ``LineageService`` (``launch/lineage_serve.py``'s
+                 workload: 4 clients, 64 requests in pages of 16, Zipf 1.5
+                 over output rows, a 3 ms window, batches of at most 32, plus
+                 lone requests that ``query()`` answers) with a RAM budget of
+                 0 and an unlimited disk tier, so every materialized stage is
+                 demoted to memmapped spill files; once with the device
+                 cutovers forced to 0 and once auto-routed.  In the forced
+                 run a stored stage's scan takes the device route wherever
+                 the store offers one, and every scan of a demoted stage
+                 must have run on the card.  The forced run then appends
+                 twice through ``encode_delta_like`` and ``run_delta`` (1%
+                 new orders with their lineitems, then 1% more lineitems of
+                 existing orders under fresh line numbers) and serves the
+                 same requests again.
+                 Every answer equals a numpy-backend PredTrace with a RAM
+                 store on the same catalog; lines carry the demote bytes and
+                 seconds, the service's stats (coalesce width, cache hit and
+                 stale rates, ``delta_hits``, ``disk_tier_answers``, p50 and
+                 p99), the engine's route counts and each stored stage's
+                 routes by tier, each ``DeltaReport``, the
+                 slab uploads after each append and the ``disk_scan_probe``
+                 cutover.  The forced run's K1/K2 launches are counted from 0
+                 and kept; each is replayed against the plain version and the
+                 largest of each variant is timed beside its bound.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
@@ -58,6 +83,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -525,6 +551,428 @@ def phase_main_path_kernels(calls) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 7: the serving path over a disk-tiered store, with appends
+# --------------------------------------------------------------------------- #
+SERVE_QUERIES = ("q3", "q12")
+# the workload of the reference's src/repro/launch/lineage_serve.py
+SERVE = dict(requests=64, clients=4, burst=16, zipf=1.5, window_ms=3.0,
+             max_batch=32)
+# the append after which q3's cached answers must be extended, not recomputed
+LATE_LINES = "late lineitems of existing orders"
+
+
+def tally_method(cls, name: str, tally: dict, nbytes) -> callable:
+    """Wraps ``cls.name`` so that each call adds one to ``tally["calls"]``,
+    its seconds (after a device synchronise) to ``tally["seconds"]`` and
+    ``nbytes(args, result)`` to ``tally["bytes"]``; returns the unwrapper."""
+    real = getattr(cls, name)
+    lock = threading.Lock()
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        with lock:
+            tally["calls"] += 1
+            tally["seconds"] += dt
+            tally["bytes"] += int(nbytes(a, out))
+        return out
+
+    setattr(cls, name, timed)
+    return lambda: setattr(cls, name, real)
+
+
+def new_tally() -> dict:
+    return {"calls": 0, "seconds": 0.0, "bytes": 0}
+
+
+def grown_catalog(cat, deltas):
+    """The catalog with each delta's rows concatenated (row ids included):
+    the oracle's appended catalog, built without the incremental path."""
+    from repro_torch.core.table import Table
+
+    out = dict(cat)
+    for name, d in deltas.items():
+        base = cat[name]
+        out[name] = Table({c: np.concatenate([np.asarray(base.cols[c]),
+                                              np.asarray(d.cols[c])])
+                           for c in base.cols}, dict(base.dicts), base.name)
+    return out
+
+
+def late_lineitems(li, k: int, rng) -> dict:
+    """``k`` lineitems added to existing orders: each copies a random
+    lineitem's values and takes the next free ``l_linenumber`` of its order,
+    so (l_orderkey, l_linenumber) stays TPC-H's unique lineitem key."""
+    lk = np.asarray(li.cols["l_orderkey"])
+    ln = np.asarray(li.cols["l_linenumber"])
+    idx = rng.integers(0, li.nrows, k)
+    keys, inv = np.unique(lk, return_inverse=True)
+    top = np.zeros(len(keys), dtype=np.int64)
+    np.maximum.at(top, inv, ln)
+    # the j-th new line of an order (in draw order) gets its max + 1 + j
+    g = inv[idx]
+    order = np.argsort(g, kind="stable")
+    first = np.searchsorted(g[order], g[order])
+    rank = np.empty(k, dtype=np.int64)
+    rank[order] = np.arange(k) - first
+    cols = {c: np.asarray(li.cols[c])[idx] for c in li.columns}
+    cols["l_linenumber"] = (top[g] + 1 + rank).astype(ln.dtype)
+    return cols
+
+
+def append_deltas(cat, rng):
+    """Two appends, each encoded against the catalog it lands on
+    (``encode_delta_like``): 1% new orders with their lineitems (copies of
+    random orders under new order keys, like TPC-H's refresh function 1),
+    then 1% more lineitems added to orders already there, each under its
+    order's next line number.  Returns (label, deltas) pairs."""
+    from repro_torch.core.table import encode_delta_like
+
+    o, li = cat["orders"], cat["lineitem"]
+    okeys = np.asarray(o.cols["o_orderkey"])
+    pick = rng.choice(o.nrows, o.nrows // 100, replace=False)
+    new_keys = (okeys.max() + 1 + np.arange(len(pick))).astype(okeys.dtype)
+    ocols = {c: np.asarray(o.cols[c])[pick] for c in o.columns}
+    ocols["o_orderkey"] = new_keys
+    lk = np.asarray(li.cols["l_orderkey"])
+    srt = np.argsort(okeys[pick])
+    sel = np.flatnonzero(np.isin(lk, okeys[pick]))
+    lcols = {c: np.asarray(li.cols[c])[sel] for c in li.columns}
+    lcols["l_orderkey"] = new_keys[srt][np.searchsorted(okeys[pick][srt],
+                                                        lk[sel])]
+    rf1 = {"orders": encode_delta_like(o, ocols),
+           "lineitem": encode_delta_like(li, lcols)}
+    li1 = grown_catalog(cat, rf1)["lineitem"]
+    late = {"lineitem": encode_delta_like(
+        li1, late_lineitems(li1, li1.nrows // 100, rng))}
+    return [("new orders with their lineitems", rf1),
+            (LATE_LINES, late)]
+
+
+def numpy_pipelines(cat, stack) -> dict:
+    """q3 and q12 as numpy-backend PredTraces with a RAM store on ``cat``
+    (closed with ``stack``), run."""
+    from repro_torch.core import PredTrace, ScanEngine
+    from repro_torch.tpch import ALL_QUERIES
+
+    pts = {}
+    for q in SERVE_QUERIES:
+        pts[q] = stack.enter_context(PredTrace(
+            dict(cat), ALL_QUERIES[q](cat), store=True,
+            scan_engine=ScanEngine("numpy")))
+        pts[q].infer()
+        pts[q].run()
+    return pts
+
+
+def oracle_answers(pts, reqs) -> dict:
+    """The numpy pipelines' answers by (pipeline, row)."""
+    out = {}
+    for q, pt in pts.items():
+        rows = sorted({r for qq, r in reqs if qq == q})
+        out.update({(q, r): a for r, a in zip(rows, pt.query_batch(rows))})
+    return out
+
+
+def serve_oracle(cat, reqs) -> dict:
+    from contextlib import ExitStack
+
+    with ExitStack() as stack:
+        return oracle_answers(numpy_pipelines(cat, stack), reqs)
+
+
+def check_served(answers, reqs, oracle, label) -> None:
+    for (q, r), a in zip(reqs, answers):
+        if not _answers_equal(a, oracle[(q, r)]):
+            raise AssertionError(f"{label}: {q} row {r} differs from numpy")
+
+
+def serve_stats(st) -> dict:
+    keep = ("answered", "failed", "batches", "coalesce_width_avg",
+            "coalesce_width_max", "cache_hit_rate", "cache_hits",
+            "cache_misses", "cache_stale", "delta_hits", "disk_tier_answers",
+            "superset_answers", "latency_ms_p50", "latency_ms_p99")
+    out = {k: st[k] for k in keep}
+    looked = st["cache_hits"] + st["cache_misses"]
+    out["cache_stale_rate"] = st["cache_stale"] / looked if looked else 0.0
+    return out
+
+
+def route_counts(pts) -> dict:
+    return {q: {k: getattr(pt.scan_engine.stats, k) for k in (
+        "device_scans", "device_chosen", "rle_insitu_chosen",
+        "disk_insitu_chosen", "decode_chosen", "member_fused_scans")} for q, pt in pts.items()}
+
+
+# a stored stage's device routes (encoded lanes scanned by K1/K2 on the card)
+DEVICE_STORE_ROUTES = ("device_insitu", "insitu_rle")
+# engine counters bumped by exactly one store route each; a scan that moves
+# none of them ran the host's zone-map candidate gather ("pruned", which
+# scans partitions) or had its zone maps prune every partition ("no_work")
+STORE_ROUTE_COUNTERS = {"device_chosen": "device_insitu",
+                        "rle_insitu_chosen": "insitu_rle",
+                        "disk_insitu_chosen": "disk_insitu",
+                        "decode_chosen": "decode",
+                        "insitu_chosen": "insitu"}
+
+
+def pin_store_device_route() -> callable:
+    """Forced run: a stored stage's scan ranks the store's device route
+    first wherever it is offered (the cost model would otherwise learn to
+    scan a demoted stage on the host); the other candidates stay behind it
+    for a program the device cannot take.  Returns the unwrapper."""
+    from repro_torch.core.cost import CostModel
+
+    real = CostModel.choose
+
+    def choose(self, site, cands, meta=None):
+        ch = real(self, site, cands, meta)
+        dev = [t for t in ch.ranked if t[1] in DEVICE_STORE_ROUTES]
+        if site.startswith("store:") and dev and ch.route != dev[0][1]:
+            ch.ranked = dev[:1] + [t for t in ch.ranked if t is not dev[0]]
+            ch.est, ch.route, ch.work = dev[0]
+            if ch.decision is not None:
+                ch.decision.chosen, ch.decision.est_s = ch.route, ch.est
+        return ch
+
+    CostModel.choose = choose
+    return lambda: setattr(CostModel, "choose", real)
+
+
+def tally_store_routes(routes: dict, names: dict) -> callable:
+    """Counts each stored-stage scan by (query, stage, tier, route) in
+    ``routes``: the route is the store counter that the scan moved on its
+    engine (``names`` maps an engine's id to its query).  Returns the
+    unwrapper."""
+    from repro_torch.core.store import IntermediateStore
+
+    real = IntermediateStore.scan
+    lock = threading.Lock()
+
+    def scan(self, node_id, pred, binding, engine):
+        tier = self.stages[node_id].tier
+        keys = (*STORE_ROUTE_COUNTERS, "partitions_scanned")
+        before = {k: getattr(engine.stats, k) for k in keys}
+        out = real(self, node_id, pred, binding, engine)
+        moved = [r for k, r in STORE_ROUTE_COUNTERS.items()
+                 if getattr(engine.stats, k) != before[k]]
+        if not moved:
+            moved = ["pruned" if engine.stats.partitions_scanned
+                     != before["partitions_scanned"] else "no_work"]
+        key = f"{names.get(id(engine), '?')} stage {node_id} {tier} {moved[0]}"
+        with lock:
+            routes[key] = routes.get(key, 0) + 1
+        return out
+
+    IntermediateStore.scan = scan
+    return lambda: setattr(IntermediateStore, "scan", real)
+
+
+def check_disk_scans_on_card(routes: dict) -> None:
+    """Forced run: every scan of a demoted stage ran a device route, and at
+    least one did."""
+    disk = {k: v for k, v in routes.items()
+            if " disk " in k and not k.endswith("no_work")}
+    host = {k: v for k, v in disk.items()
+            if not k.endswith(DEVICE_STORE_ROUTES)}
+    if host or not disk:
+        raise AssertionError(f"demoted stages not scanned on the card: "
+                             f"{routes}")
+
+
+def phase_serve(db, smi: str):
+    """Phase 7: TPC-H q3 and q12 at phase 5's scale through the serving
+    path.  Each pipeline keeps no stage in RAM and every materialized stage
+    on the disk tier; LineageService answers the workload of
+    ``launch/lineage_serve.py``, once with the device cutovers forced to 0
+    and once auto-routed, every answer held to a numpy-backend PredTrace
+    with a RAM store on the same catalog.  The forced run then appends
+    twice (``run_delta``) and serves the same requests again, held to a
+    fresh numpy PredTrace over the appended catalog.  K1/K2 launches of
+    the forced run are counted from 0, kept and replayed against the plain
+    version afterwards."""
+    from contextlib import ExitStack
+
+    from repro_torch.core import LineageService, PredTrace
+    from repro_torch.core.dispatch import disk_scan_probe
+    from repro_torch.core.scan import TorchBackend
+    from repro_torch.core.store import IntermediateStore
+    from repro_torch.kernels.pred_filter import LAUNCHES, reset_launches
+    from repro_torch.launch.lineage_serve import serve, workload
+    from repro_torch.tpch import ALL_QUERIES
+
+    t_phase = time.perf_counter()
+    probe = disk_scan_probe()
+    emit({"phase": "serve_disk_probe", "cutover_rows": int(probe.value),
+          "source": probe.source, "nvidia_smi": smi})
+    cat0 = dict(db)
+    t0 = time.perf_counter()
+    with ExitStack() as stack:
+        npts = numpy_pipelines(cat0, stack)
+        reqs = workload(npts, SERVE["requests"], SERVE["zipf"], seed=1)
+        # lone requests (a batch of one each): answered by query(), whose
+        # stage scan takes the store's in-situ routes on the disk tier
+        lone = [(q, r) for q in SERVE_QUERIES for r in [
+            r for r in range(npts[q].exec_result.output.nrows)
+            if (q, r) not in set(reqs)][:2]]
+        oracle0 = oracle_answers(npts, reqs + lone)
+    emit({"phase": "serve_oracle", "seconds": time.perf_counter() - t0,
+          "requests": len(reqs), "distinct": len(set(reqs))})
+    calls, stage = [], {}
+    launches = None
+    for route in ("forced", "auto"):
+        unwrap, routes, names = [], {}, {}
+        if route == "forced":
+            for k in CUTOVER_ENV:
+                os.environ[k] = "0"
+            unwrap.append(capture_batch_launches(calls, stage))
+            unwrap.append(pin_store_device_route())
+            reset_launches()
+        unwrap.append(tally_store_routes(routes, names))
+        demote, upload = new_tally(), new_tally()
+        unwrap.append(tally_method(IntermediateStore, "demote", demote,
+                                   lambda a, out: out.nbytes()))
+        unwrap.append(tally_method(TorchBackend, "_build_entry", upload,
+                                   lambda a, out: a[0].nbytes))
+        try:
+            with ExitStack() as stack:
+                pts = {}
+                t0 = time.perf_counter()
+                for q in SERVE_QUERIES:
+                    stage.update(query=q, name="build")
+                    pt = stack.enter_context(PredTrace(
+                        dict(cat0), ALL_QUERIES[q](cat0), store=True,
+                        budget_bytes=0, disk_budget_bytes=None,
+                        device="cuda"))
+                    names[id(pt.scan_engine)] = q
+                    pt.infer()
+                    pt.run()
+                    if sorted(pt.store.disk_stages()) != sorted(pt.mat_plan.disk) \
+                            or not pt.mat_plan.disk or pt.mat_plan.dropped:
+                        raise AssertionError(f"{q}: stages not demoted")
+                    pts[q] = pt
+                emit({"phase": "serve_build", "route": route,
+                      "seconds": time.perf_counter() - t0,
+                      "stages_demoted": demote["calls"],
+                      "demoted_bytes": demote["bytes"],
+                      "demote_seconds": demote["seconds"],
+                      "disk_stages": {q: len(pt.store.disk_stages())
+                                      for q, pt in pts.items()},
+                      "slab_uploads": dict(upload), "nvidia_smi": smi})
+                svc = stack.enter_context(LineageService(
+                    pts, max_batch=SERVE["max_batch"],
+                    window_s=SERVE["window_ms"] / 1e3))
+                rounds = [("initial", None)]
+                if route == "forced":
+                    rounds += append_deltas(cat0, np.random.default_rng(15))
+                cat, oracle = cat0, oracle0
+                for label, deltas in rounds:
+                    rec = {"phase": "serve", "route": route, "round": label}
+                    hits0 = svc.stats()["delta_hits"]
+                    upload.update(new_tally())
+                    demote.update(new_tally())
+                    if deltas is not None:
+                        t0 = time.perf_counter()
+                        for q, pt in pts.items():
+                            stage.update(query=q, name=f"run_delta: {label}")
+                            rep = pt.run_delta(deltas).delta.to_dict()
+                            rec.setdefault("delta_reports", {})[q] = {
+                                "output_action": rep["output_action"],
+                                "full_invalidation": rep["full_invalidation"],
+                                "stages": [s["action"] for s in
+                                           rep["stages"].values()],
+                                "seconds": rep["seconds"]}
+                        rec["run_delta_s"] = time.perf_counter() - t0
+                        rec["appended_rows"] = {n: int(d.nrows)
+                                                for n, d in deltas.items()}
+                        cat = grown_catalog(cat, deltas)
+                        t0 = time.perf_counter()
+                        oracle = serve_oracle(cat, reqs + lone)
+                        rec["oracle_s"] = time.perf_counter() - t0
+                    stage.update(query="served", name=f"serve: {label}")
+                    t0 = time.perf_counter()
+                    answers = serve(svc, reqs, SERVE["clients"],
+                                    SERVE["burst"])
+                    rec["serve_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    lone_answers = [svc.query(r, q, timeout=300) for q, r in lone]
+                    rec["lone_s"] = time.perf_counter() - t0
+                    st = svc.stats()
+                    check_served(answers, reqs, oracle, f"{route} {label}")
+                    check_served(lone_answers, lone, oracle,
+                                 f"{route} {label} lone")
+                    if st["failed"] or st["answered"] % (len(reqs) + len(lone)):
+                        raise AssertionError(f"{route} {label}: {st}")
+                    if st["disk_tier_answers"] < 1:
+                        raise AssertionError(f"{route} {label}: no answer "
+                                             f"from the disk tier")
+                    rec.update(identical_to_numpy=True, stats=serve_stats(st),
+                               routes=route_counts(pts),
+                               stage_routes=dict(routes),
+                               slab_uploads=dict(upload), demotes=dict(demote),
+                               nvidia_smi=smi)
+                    emit(rec)
+                    if label == LATE_LINES and st["delta_hits"] <= hits0:
+                        raise AssertionError("no delta hit after an append "
+                                             "that keeps q3's stage")
+        finally:
+            for u in reversed(unwrap):
+                u()
+            for k in CUTOVER_ENV:
+                os.environ.pop(k, None)
+        if route == "forced":
+            launches = {k: LAUNCHES[k] for k in ("cmp", "sets")}
+            emit({"phase": "serve_launches", "route": route,
+                  "launches": launches, "captured": len(calls),
+                  "stage_routes": routes})
+            check_disk_scans_on_card(routes)
+    if launches["cmp"] < 1 or launches["sets"] < 1:
+        raise AssertionError(f"serving path missed a kernel variant: {launches}")
+    if len(calls) != launches["cmp"] + launches["sets"]:
+        raise AssertionError(f"captured {len(calls)} calls of {launches}")
+    replay_serve_launches(calls)
+    emit({"phase": "serve_total", "seconds": time.perf_counter() - t_phase})
+
+
+def replay_serve_launches(calls) -> None:
+    """Every kept launch against the plain version (exact equality), then
+    the largest K1 and K2 launch timed beside their bound."""
+    from repro_torch.kernels.pred_filter import pred_filter_batch
+    from repro_torch.kernels.pred_filter.ref import _batch_bool
+
+    largest = {}
+    for i, (where, args) in enumerate(calls):
+        got = pred_filter_batch(**args)
+        want = _batch_bool(args["cols"], args["thresholds"], args["atoms"],
+                           args.get("set_cols", ()), args.get("set_slab"),
+                           args.get("set_off"), args.get("set_len"),
+                           args.get("iters", 1))
+        if not torch.equal(got, want):
+            raise AssertionError(f"serve launch #{i} ({where}) differs from "
+                                 f"its plain version")
+        variant = "sets" if args.get("set_cols") else "cmp"
+        size = args["thresholds"].shape[0] * args["cols"].shape[1]
+        if size > largest.get(variant, (-1,))[0]:
+            largest[variant] = (size, i)
+    emit({"phase": "serve_replay", "launches_checked": len(calls),
+          "all_equal": True})
+    for variant, (_, i) in sorted(largest.items()):
+        where, args = calls[i]
+        thr = args["thresholds"].cpu().numpy()
+        m = len(args.get("set_cols", ()))
+        meta = dict(n=int(args["cols"].shape[1]), k=thr.shape[0],
+                    a=thr.shape[1], m=m, lo=args["blk_lo"].cpu().numpy(),
+                    hi=args["blk_hi"].cpu().numpy(), thr=thr,
+                    keys=int(args["set_slab"].numel()) if m else 0)
+        label = (f"{'K2' if m else 'K1'} serve largest launch "
+                 f"{where['query']} {where['name']} #{i}")
+        measure_batch("serve_kernel", label, args, meta, query=where["query"],
+                      stage=where["name"])
+
+
+# --------------------------------------------------------------------------- #
 # phase 6: the other kernels through their entry points
 # --------------------------------------------------------------------------- #
 def reset_all_launches() -> None:
@@ -853,6 +1301,7 @@ def main() -> None:
     main_launches, db, calls = phase_main_path(args.sf)
     main_recs = phase_main_path_kernels(calls)
     del calls
+    phase_serve(db, smi)
     t6 = time.perf_counter()
     inp = entry_inputs(db)
     del db

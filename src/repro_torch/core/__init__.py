@@ -18,6 +18,9 @@ from .scan import (
     AtomProgram, LRUCache, NumpyBackend, ScanEngine, TorchBackend,
     prune_zone_maps,
 )
+from .service import (
+    DeadlineExceeded, LineageRequest, LineageService, RequestCancelled,
+)
 from .store import InSituBackend, IntermediateStore, StoredTable, encode_column
 from .table import (
     PartitionedTable, Table, ZoneMaps, build_zone_maps, catalog_from_numpy,
@@ -35,5 +38,6 @@ __all__ = [
     "MaterializationPlan", "plan_materialization",
     "PartitionedTable", "ZoneMaps", "partition_table", "build_zone_maps",
     "prune_zone_maps", "LRUCache", "catalog_from_numpy",
+    "LineageService", "LineageRequest", "DeadlineExceeded", "RequestCancelled",
     "CostModel", "Decision", "PlanRecorder", "PlanReport", "default_cost_model",
 ]

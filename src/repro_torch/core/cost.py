@@ -73,6 +73,11 @@ MEMBER_RATIO = 0.5
 # run-space RLE scans touch one lane element per *run* and pay a final
 # np.repeat expansion; charged per row, that is far below a serial scan
 RLE_RATIO = 0.25
+# disk-tier in-situ scans run the same code-space compares over memmapped
+# payloads: cold pages fault in at storage bandwidth, so the seeded marginal
+# cost sits above the RAM in-situ slope (refined online like every route —
+# a warm page cache quickly pulls the learned slope back down)
+DISK_RATIO = 2.0
 
 # online refinement: EWMA weight for the learned marginal cost, the minimum
 # observations before the learned slope overrides the seed, and the work
@@ -99,6 +104,10 @@ _ROUTE_RATIO = {
     "device_member": MEMBER_RATIO,
     "device_float": DEVICE_RATIO_CUDA,
     "insitu_rle": RLE_RATIO,
+    # per-unit cost identical to a serial host scan — the route wins because
+    # its work is delta_rows x atoms instead of total_rows x atoms
+    "delta_rescan": 1.0,
+    "disk_insitu": DISK_RATIO,
 }
 
 # route -> dispatch probe family invalidated when the route's estimates
@@ -113,6 +122,7 @@ _DISPATCH_KIND = {
     "insitu_heavy": "insitu",
     "insitu_rle": "rle",
     "decode": "insitu",
+    "disk_insitu": "disk",
 }
 
 

@@ -8,13 +8,15 @@ one they were tuned on:
   upload and readback overhead vs. better per-row throughput), likewise for
   fused membership and run-space RLE launches,
 * in-situ encoded scan vs. decode-then-scan (per-atom Python + searchsorted
-  overhead vs. one amortized decode).
+  overhead vs. one amortized decode),
+* a disk-tier stage compared straight through its memmap vs. loaded into
+  RAM first (page-table setup vs. one full read).
 
 Each is measured lazily, once per process, on small synthetic workloads,
 cached under a lock, and overridable via environment for CI and tests
 (``PREDTRACE_DEVICE_CUTOVER``, ``PREDTRACE_INSITU_CUTOVER``,
-``PREDTRACE_MEMBER_CUTOVER``, ``PREDTRACE_RLE_CUTOVER`` — integer row
-thresholds).  Every timed device launch ends in its mask readback, which
+``PREDTRACE_MEMBER_CUTOVER``, ``PREDTRACE_RLE_CUTOVER``,
+``PREDTRACE_DISK_CUTOVER`` — integer row thresholds).  Every timed device launch ends in its mask readback, which
 waits for the device, so host clocks time the whole launch.
 
 Probes are *invalidatable*: each cached measurement is a :class:`Probe`
@@ -236,6 +238,66 @@ def insitu_scan_probe() -> Probe:
 
 
 # --------------------------------------------------------------------------- #
+# disk-tier (memmap) scan cutover (stage rows)
+# --------------------------------------------------------------------------- #
+
+_disk_cutover: Optional[Probe] = None
+
+
+def disk_scan_probe() -> Probe:
+    """Measured stage-row threshold below which loading a spilled payload
+    fully into RAM and comparing beats comparing straight through the
+    memmap (whose open + page-table setup dominates tiny stages), as a
+    stamped :class:`Probe` (``PREDTRACE_DISK_CUTOVER`` pins it).
+
+    The measurement runs with warm pages, so it prices the steady state of
+    a repeatedly-scanned disk-tier stage; the cold page-fault slope is what
+    the ``disk_insitu`` route's seeded ratio charges, refined online from
+    observed actuals like every other route."""
+    global _disk_cutover
+    env = _env_int("PREDTRACE_DISK_CUTOVER")
+    if env is not None:
+        return _mk_probe("disk", env, source="env")
+    with _LOCK:
+        if _disk_cutover is not None:
+            return _disk_cutover
+        import shutil
+        import tempfile
+
+        rng = np.random.default_rng(23)
+        sizes = (1 << 12, 1 << 18)
+        tmpdir = tempfile.mkdtemp(prefix="predtrace-probe-")
+        rows = float("inf")
+        try:
+            paths = {}
+            for n in sizes:
+                p = os.path.join(tmpdir, f"probe_{n}.npy")
+                np.save(p, rng.integers(0, 1000, n).astype(np.int64))
+                paths[n] = p
+            mmaps = {n: np.load(p, mmap_mode="r") for n, p in paths.items()}
+
+            def loaded(n: int) -> np.ndarray:
+                return np.load(paths[n]) > 500
+
+            def mapped(n: int) -> np.ndarray:
+                return np.asarray(mmaps[n] > 500)
+
+            try:
+                rows = measured_crossover(loaded, mapped, sizes)
+            except Exception:
+                rows = float("inf")
+            del mmaps
+        finally:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+        if rows == float("inf"):
+            cut = 1 << 20
+        else:
+            cut = int(min(max(rows, 256), 1 << 20))
+        _disk_cutover = _mk_probe("disk", cut)
+        return _disk_cutover
+
+
+# --------------------------------------------------------------------------- #
 # fused-membership cutover (rows x set-atoms work product)
 # --------------------------------------------------------------------------- #
 
@@ -361,9 +423,8 @@ def host_row_cost() -> float:
 def note_disagreement(kind: str) -> int:
     """The cost model observed actuals persistently disagreeing (>3x) with
     estimates seeded from this probe family (``"device"`` / ``"insitu"`` /
-    ``"member"`` / ``"rle"``): drop the cached probe so the next consult
-    re-measures,
-    and decay the family's confidence.  Returns the disagreement count."""
+    ``"member"`` / ``"rle"`` / ``"disk"``): drop the cached probe so the next
+    consult re-measures, and decay the family's confidence.  Returns the disagreement count."""
     with _LOCK:
         n = _disagreements.get(kind, 0) + 1
         _disagreements[kind] = n
@@ -374,7 +435,7 @@ def note_disagreement(kind: str) -> int:
 def invalidate(kind: Optional[str] = None) -> None:
     """Drop cached probes of one family (or all, ``kind=None``) so the next
     consult re-measures under current load."""
-    global _insitu_cutover, _host_row_cost
+    global _insitu_cutover, _disk_cutover, _host_row_cost
     with _LOCK:
         if kind in (None, "device"):
             _device_cutovers.clear()
@@ -384,6 +445,8 @@ def invalidate(kind: Optional[str] = None) -> None:
             _member_cutovers.clear()
         if kind in (None, "rle"):
             _rle_cutovers.clear()
+        if kind in (None, "disk"):
+            _disk_cutover = None
         if kind is None:
             _host_row_cost = None
 
@@ -398,6 +461,8 @@ def probe_info() -> Dict[str, object]:
                        else _insitu_cutover.as_dict()),
             "member": {k: p.as_dict() for k, p in _member_cutovers.items()},
             "rle": {k: p.as_dict() for k, p in _rle_cutovers.items()},
+            "disk": (None if _disk_cutover is None
+                     else _disk_cutover.as_dict()),
             "disagreements": dict(_disagreements),
             "host_row_cost_s": _host_row_cost,
         }
@@ -407,11 +472,12 @@ def probe_info() -> Dict[str, object]:
 def reset_for_tests() -> None:
     """Drop all cached measurements and disagreement counters (tests
     re-measure or use env overrides)."""
-    global _insitu_cutover, _host_row_cost
+    global _insitu_cutover, _disk_cutover, _host_row_cost
     with _LOCK:
         _device_cutovers.clear()
         _insitu_cutover = None
         _member_cutovers.clear()
         _rle_cutovers.clear()
+        _disk_cutover = None
         _host_row_cost = None
         _disagreements.clear()

@@ -16,8 +16,9 @@ The executor also
 
 from __future__ import annotations
 
+import itertools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +28,7 @@ from .expr import Expr, eval_np
 from .scan import ScanEngine
 from .store import IntermediateStore
 from .table import (
-    RID, Table, concat_tables, partition_table,
+    RID, Table, append_rows, concat_tables, empty_like, partition_table,
 )
 
 
@@ -226,6 +227,44 @@ class NodeStats:
 
 
 @dataclass
+class StageDelta:
+    """How one materialized stage fared under a delta run (explain() detail)."""
+
+    action: str  # "extended" | "untouched" | "rerun" | "absent"
+    reason: Optional[str] = None  # append-unsafety reason for "rerun"
+    delta_rows: int = 0  # rows appended to the stage ("extended" only)
+
+
+@dataclass
+class DeltaReport:
+    """What :meth:`Executor.run_delta` did — per-stage actions, the output
+    action, and whether the run had to invalidate (any full stage re-run
+    bumps the generation base, evicting every cached answer; a pure append
+    run leaves the base untouched and only moves row watermarks)."""
+
+    appended: Dict[str, int] = field(default_factory=dict)  # table -> rows
+    stages: Dict[int, StageDelta] = field(default_factory=dict)
+    output_action: str = "extended"  # "extended" | "unchanged" | "recomputed"
+    output_reason: Optional[str] = None
+    full_invalidation: bool = False
+    seconds: float = 0.0
+
+    def to_dict(self) -> Dict:
+        return {
+            "appended": dict(self.appended),
+            "stages": {
+                nid: {"action": sd.action, "reason": sd.reason,
+                      "delta_rows": sd.delta_rows}
+                for nid, sd in self.stages.items()
+            },
+            "output_action": self.output_action,
+            "output_reason": self.output_reason,
+            "full_invalidation": self.full_invalidation,
+            "seconds": self.seconds,
+        }
+
+
+@dataclass
 class ExecResult:
     output: Table
     stats: Dict[int, NodeStats]
@@ -234,6 +273,14 @@ class ExecResult:
     materialized: Dict[int, object]
     seconds: float = 0.0
     store: Optional[IntermediateStore] = None
+    # set by run_delta: what the incremental pass did per stage
+    delta: Optional[DeltaReport] = None
+
+
+# process-wide monotone run ids: every Executor.run() gets a fresh one, so a
+# (run_generation, store.generation) pair uniquely versions the data any
+# lineage answer was computed from (LineageService cache invalidation)
+_RUN_GENERATIONS = itertools.count(1)
 
 
 class Executor:
@@ -248,6 +295,10 @@ class Executor:
         # phase uses; without one, the torch backend on ``device`` (None:
         # the CUDA device, raising without one; "cpu": the plain version)
         self.scan_engine = scan_engine or ScanEngine("torch", device=device)
+        # generation of the most recent run() through this executor (0 =
+        # never ran); bumped at run entry so answers derived from a
+        # superseded execution are detectably stale
+        self.run_generation: int = 0
 
     def schemas(self) -> Dict[str, List[str]]:
         return {k: t.columns for k, t in self.catalog.items()}
@@ -271,6 +322,7 @@ class Executor:
         during the pipeline-execution phase (store-backed runs partition at
         encode time via the store's own config instead)."""
         materialize = materialize or {}
+        self.run_generation = next(_RUN_GENERATIONS)
         cache: Dict[int, Table] = {}
         stats: Dict[int, NodeStats] = {}
         saved: Dict[int, object] = {}
@@ -299,6 +351,164 @@ class Executor:
         return ExecResult(out, stats, saved, time.perf_counter() - t_start, store=store)
 
     # ------------------------------------------------------------------ #
+    def run_delta(
+        self,
+        plan: O.Node,
+        appended: Dict[str, Table],
+        materialize: Optional[Dict[int, Optional[List[str]]]] = None,
+        store: Optional[IntermediateStore] = None,
+        num_partitions: Optional[int] = None,
+        partition_rows: Optional[int] = None,
+        prev: Optional[ExecResult] = None,
+    ) -> ExecResult:
+        """Incrementally absorb appended source rows instead of re-running.
+
+        ``appended`` maps catalog table name -> delta rows (row ids must
+        continue from the existing table — see
+        :func:`repro_torch.core.table.encode_delta_like`).  The catalog tables
+        grow append-only (:func:`~repro_torch.core.table.append_rows`: fresh
+        partitions, tail-extended zone maps).  Each materialized stage of
+        ``prev`` is then classified:
+
+        * **untouched** — no appended table in its subtree: kept as-is.
+        * **extended** — its whole prefix is append-safe (row-local unary
+          operators, per ``plan.subtree_append_unsafe``): only the delta
+          rows run through the prefix, and the result is appended to the
+          stored stage (``store.put_delta`` / raw-table append) without
+          touching old rows.
+        * **rerun** — the prefix is not append-safe: the stage is re-put
+          from a full execution pass, with the classifier's reason recorded
+          in the returned :class:`DeltaReport` (surfaced by ``explain()``).
+
+        A pure append run (no reruns) leaves ``run_generation`` and the
+        store generation untouched — cached lineage answers stay warm and
+        only per-table row watermarks move.  Any rerun stage forces
+        ``full_invalidation``: its old rows may have changed, so the
+        generation base is bumped and every cached answer goes stale.
+
+        Args:
+            plan: the pipeline (same plan the prior ``run`` executed).
+            appended: per-source-table delta rows (empty deltas ignored).
+            materialize: node-id -> keep-columns map of the prior run.
+            store: the prior run's IntermediateStore, if any.
+            num_partitions / partition_rows: raw-stage partition layout
+                (storeless runs), as passed to the prior ``run``.
+            prev: the prior ExecResult (required — there is nothing to
+                extend otherwise).
+        Returns:
+            ExecResult: updated output/materialized, with ``delta`` holding
+            the :class:`DeltaReport` of what happened.
+        """
+        from .plan import subtree_append_unsafe
+
+        if prev is None:
+            raise ValueError("run_delta requires the prior run's ExecResult")
+        materialize = materialize or {}
+        appended = {k: d for k, d in appended.items() if d.nrows}
+        t_start = time.perf_counter()
+        report = DeltaReport(
+            appended={k: int(d.nrows) for k, d in appended.items()})
+
+        for name, d in appended.items():
+            self.catalog[name] = append_rows(self.catalog[name], d)
+
+        saved = dict(prev.materialized)
+        nodes = _nodes_by_id(plan)
+        delta_cache: Dict[int, Table] = {}
+
+        def delta_rec(n: O.Node) -> Table:
+            # the delta image of a node: its output over *only* the appended
+            # rows (sources not appended contribute an empty delta)
+            if n.id in delta_cache:
+                return delta_cache[n.id]
+            if isinstance(n, O.Source):
+                out = appended.get(n.table)
+                if out is None:
+                    out = empty_like(self.catalog[n.table])
+            else:
+                out = self._exec(n, delta_rec)
+            delta_cache[n.id] = out
+            return out
+
+        rerun: set = set()
+        for nid in materialize:
+            node = nodes[nid]
+            srcs = {s.table for s in O.sources(node)}
+            if not (srcs & appended.keys()):
+                report.stages[nid] = StageDelta("untouched")
+                continue
+            held = nid in saved or (store is not None and nid in store)
+            if not held:
+                # dropped by the budget planner / never stored: nothing to
+                # extend, and the query path already treats it as dropped
+                report.stages[nid] = StageDelta("absent")
+                continue
+            reason = subtree_append_unsafe(node)
+            if reason is not None:
+                report.stages[nid] = StageDelta("rerun", reason=reason)
+                rerun.add(nid)
+                continue
+            d_out = delta_rec(node)
+            keep = materialize[nid]
+            proj = (d_out if keep is None
+                    else d_out.project([c for c in keep if d_out.has(c)]))
+            if store is not None and nid in store:
+                saved[nid] = store.put_delta(nid, proj)
+            else:
+                saved[nid] = append_rows(saved[nid], proj)
+            report.stages[nid] = StageDelta("extended",
+                                            delta_rows=int(proj.nrows))
+
+        out_reason = subtree_append_unsafe(plan)
+        root_srcs = {s.table for s in O.sources(plan)}
+        root_touched = bool(root_srcs & appended.keys())
+        stats = dict(prev.stats)
+        if rerun or (out_reason is not None and root_touched):
+            # one full execution pass over the grown catalog: needed for the
+            # new output and to re-put every append-unsafe stage.  Extended
+            # stages are NOT re-put — their store entries already grew.
+            report.full_invalidation = bool(rerun)
+            if rerun:
+                # old stage rows may have changed: invalidate the base so
+                # every cached answer goes detectably stale (store.put also
+                # bumps the store generation below)
+                self.run_generation = next(_RUN_GENERATIONS)
+            cache: Dict[int, Table] = {}
+            stats = {}
+
+            def rec(n: O.Node) -> Table:
+                if n.id in cache:
+                    return cache[n.id]
+                t0 = time.perf_counter()
+                out = self._exec(n, rec)
+                stats[n.id] = NodeStats(out.nrows, out.nbytes(),
+                                        time.perf_counter() - t0)
+                if n.id in rerun:
+                    keep = materialize[n.id]
+                    proj = (out if keep is None
+                            else out.project([c for c in keep if out.has(c)]))
+                    if store is not None:
+                        proj = store.put(n.id, proj)
+                    else:
+                        proj = partition_table(proj, num_partitions,
+                                               partition_rows)
+                    saved[n.id] = proj
+                cache[n.id] = out
+                return out
+
+            output = rec(plan)
+            report.output_action = "recomputed"
+            report.output_reason = out_reason
+        elif root_touched:
+            output = append_rows(prev.output, delta_rec(plan))
+            report.output_action = "extended"
+        else:
+            output = prev.output
+            report.output_action = "unchanged"
+        report.seconds = time.perf_counter() - t_start
+        return ExecResult(output, stats, saved, report.seconds, store=store,
+                          delta=report)
+
     # ------------------------------------------------------------------ #
     def _exec(self, n: O.Node, rec) -> Table:
         if isinstance(n, O.Source):

@@ -12,9 +12,8 @@
 
 Scans run on the device given to :class:`PredTrace` (the CUDA card unless
 the caller asks for the CPU) through the ``TorchBackend`` of
-``core/scan.py``.  The reference's worker-pool / mesh partition runtime, its
-incremental (``run_delta``) path and its disk tier are not part of this
-package yet: asking for them raises ``NotImplementedError``.
+``core/scan.py``.  The reference's worker-pool / mesh partition runtime is
+not part of this package yet: asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -37,9 +36,12 @@ from .plan import (
     LineageInference, LineagePlan, MaterializationPlan, SourcePred, Stage,
     plan_materialization,
 )
-from .scan import ScanEngine
+from .scan import ScanEngine, prune_zone_maps
 from .store import IntermediateStore, StoredTable
-from .table import PartitionedTable, Table, partition_table
+from .table import (
+    PartitionedTable, Table, delta_view, encode_delta_like, partition_table,
+    table_uid,
+)
 
 
 def _eq_only_params(pred: Expr) -> set:
@@ -219,6 +221,12 @@ class LineageAnswer:
     # full plan/cost breakdown (a repro_torch.core.cost.PlanReport) — populated by
     # PredTrace.explain(); plain query() leaves it None (recording off)
     plan: Optional[object] = field(default=None, repr=False)
+    # query-time context for the warm delta-extension path
+    # (:meth:`PredTrace.query_delta`): ``(binding, param_stage, param_col,
+    # stage_sel)`` where ``stage_sel`` is the selection dict or a zero-arg
+    # thunk building it lazily (batch path).  Only precise, fully
+    # materialized answers carry one.
+    delta_ctx: Optional[tuple] = field(default=None, repr=False, compare=False)
 
     def total_rows(self) -> int:
         return int(sum(len(v) for v in self.lineage.values()))
@@ -226,6 +234,29 @@ class LineageAnswer:
     def all_precise(self) -> bool:
         """Is every table's lineage certified exact (no superset fallback)?"""
         return all(self.precise.get(t, True) for t in self.lineage)
+
+
+def delta_compatible(old, new) -> bool:
+    """Can an answer stamped with generation token ``old`` be *extended* to
+    token ``new`` by a delta rescan (:meth:`PredTrace.query_delta`)?
+
+    Tokens are ``(base, marks)`` pairs from
+    :meth:`PredTrace.answer_generation`.  Compatible means: the same base
+    (no full re-run or store invalidation in between), the same set of
+    tables and materialized stages, and every row watermark moved forward
+    or stayed — i.e. the only difference is appended rows.  Equal tokens
+    are trivially compatible."""
+    try:
+        (ob, om), (nb, nm) = old, new
+    except (TypeError, ValueError):
+        return False
+    if ob != nb:
+        return False
+    od = {m[:2]: m[2] for m in om}
+    nd = {m[:2]: m[2] for m in nm}
+    if set(od) != set(nd):
+        return False
+    return all(od[k] <= nd[k] for k in od)
 
 
 def _is_null(v) -> bool:
@@ -276,8 +307,9 @@ class PredTrace:
     same query with plan recording on and returns the cost-model
     :class:`~repro_torch.core.cost.PlanReport`.  Optional knobs: a compressed
     :class:`IntermediateStore` with a byte budget (per-table degradation to
-    the iterative/superset path) and fixed-size partitioning with zone-map
-    pruning — answers are identical under every configuration."""
+    the iterative/superset path), a disk tier for stages that miss it, and
+    fixed-size partitioning with zone-map pruning — answers are identical
+    under every configuration."""
 
     def __init__(
         self,
@@ -312,8 +344,11 @@ class PredTrace:
                 :class:`IntermediateStore`, or an existing store instance.
             budget_bytes: store byte budget (``None`` = keep everything,
                 ``0`` = keep nothing — pure iterative path).
-            disk_budget_bytes: second-tier (disk) byte budget; only ``0``
-                (tier disabled) is supported yet.
+            disk_budget_bytes: second-tier byte budget for the out-of-core
+                store: stages that miss the RAM budget are *demoted* to
+                memmap-backed disk payloads (still scanned in situ, still
+                precise) instead of dropped, while they fit this budget
+                (``None`` = unlimited disk, ``0`` = tier disabled).
             num_partitions / partition_rows: fixed-size partition layout
                 with zone maps; lineage scans prune partitions first.
             parallel / mesh: the partition runtime's worker pool and device
@@ -325,8 +360,6 @@ class PredTrace:
         if parallel or mesh is not None:
             raise NotImplementedError(
                 "parallel / mesh partition runtime is not ported yet")
-        if disk_budget_bytes != 0:
-            raise NotImplementedError("the disk tier is not ported yet")
         # partitioned table runtime: with ``num_partitions``/``partition_rows``
         # every source table (and every materialized stage) is split into
         # fixed-size row chunks carrying zone maps; lineage-query scans prune
@@ -351,7 +384,9 @@ class PredTrace:
         # budget_bytes) materializes stages encoded (core/store.py); the
         # budget planner then drops stages that don't fit and their dependent
         # source predicates degrade to the iterative/superset path
-        if store is True or (store is None and budget_bytes is not None):
+        self._owns_store = store is True or (
+            store is None and budget_bytes is not None)
+        if self._owns_store:
             store = IntermediateStore(budget_bytes,
                                       num_partitions=num_partitions,
                                       part_rows=partition_rows)
@@ -359,6 +394,7 @@ class PredTrace:
             store if isinstance(store, IntermediateStore) else None
         )
         self.budget_bytes = budget_bytes
+        self.disk_budget_bytes = disk_budget_bytes
         # one scan entry point for every query path
         self._scan = self.scan_engine.scan
         self.mat_plan: Optional[MaterializationPlan] = None
@@ -369,6 +405,59 @@ class PredTrace:
         # guards lazy iterative-plan inference: concurrent query() calls that
         # hit the superset fallback would otherwise race infer_iterative()
         self._lazy_lock = threading.RLock()
+
+    # ------------------------------------------------------------------ #
+    def close(self) -> None:
+        """Release — when this PredTrace created its own store — the store's
+        out-of-core spill root (a no-op otherwise).  Long-lived services that
+        build many PredTraces should call this, or use the instance as a
+        context manager."""
+        if self._owns_store and self.store is not None:
+            self.store.close()
+
+    def __enter__(self) -> "PredTrace":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ------------------------------------------------------------------ #
+    def answer_generation(self) -> Tuple[Tuple[int, int], Tuple]:
+        """Version token of the data any lineage answer derives from:
+        ``(base, marks)``.
+
+        ``base`` is ``(run_generation, store_generation)`` — both from
+        process-wide monotone sequences, bumped by every full ``run()`` /
+        ``run_unmodified()`` and every store ``put``/``evict``, so a base
+        pair never repeats.  ``marks`` is a sorted tuple of per-object row
+        watermarks: ``("t", table_name, nrows)`` for every catalog source
+        table and ``("s", node_id, nrows)`` for every materialized stage.
+        A pure append-only :meth:`run_delta` leaves ``base`` untouched and
+        only moves watermarks forward — the LineageService keeps answers
+        stamped with an older-watermark token warm and extends them via
+        :meth:`query_delta` (see :func:`delta_compatible`); any ``base``
+        mismatch is a hard invalidation."""
+        store_gen = self.store.generation if self.store is not None else 0
+        marks = [("t", name, int(t.nrows))
+                 for name, t in self.catalog.items()]
+        if self.exec_result is not None:
+            for nid, obj in self.exec_result.materialized.items():
+                marks.append(("s", int(nid), int(obj.nrows)))
+        return ((self.executor.run_generation, store_gen),
+                tuple(sorted(marks)))
+
+    def precision_token(self) -> Tuple:
+        """The effective budget/precision mode answers are produced under:
+        the active byte budget plus the set of budget-dropped stages.  Two
+        answers computed under different tokens are different *kinds* of
+        answer (precise vs per-table superset) even when the underlying data
+        generations coincide — the LineageService keys its answer cache on
+        this so a superset answer cached under a tight budget is never served
+        to a caller who restored precision (or vice versa)."""
+        if self.mat_plan is not None:
+            return (self.mat_plan.budget_bytes,
+                    tuple(sorted(self.mat_plan.dropped)))
+        return (self.budget_bytes, ())
 
     # ------------------------------------------------------------------ #
     def infer(self, stats: Optional[Dict] = None) -> LineagePlan:
@@ -437,17 +526,138 @@ class PredTrace:
                 partition_sizes=self.store.partition_sizes(),
                 prune_rates=self.store.prune_estimates(),
                 cost_model=self.scan_engine.cost_model,
+                disk_budget_bytes=self.disk_budget_bytes,
             )
             if self.mat_plan.dropped:
                 self.store.evict(self.mat_plan.dropped)
                 for nid in self.mat_plan.dropped:
                     self.exec_result.materialized.pop(nid, None)
+            self._apply_tiering()
         return self.exec_result
+
+    def _apply_tiering(self) -> None:
+        """Move stages between the RAM and disk tiers to match the current
+        materialization plan.  Demote/promote never bump the store
+        generation (rows are unchanged — only residency and scan cost
+        move), so cached lineage answers stay warm across a tier move; the
+        ``exec_result.materialized`` references are refreshed so the RAM
+        copy of a demoted stage isn't pinned alive."""
+        if self.store is None or self.mat_plan is None:
+            return
+        for nid in self.mat_plan.disk:
+            if nid in self.store.stages:
+                self.store.demote(nid)
+        for nid in self.mat_plan.kept:
+            if nid in self.store.stages \
+                    and self.store.stages[nid].tier == "disk":
+                self.store.promote(nid)
+        if self.exec_result is not None:
+            for nid, st in self.store.stages.items():
+                if nid in self.exec_result.materialized:
+                    self.exec_result.materialized[nid] = st
 
     def run_unmodified(self) -> ExecResult:
         """Run the pipeline as-is (no intermediate results)."""
         self.exec_result = self.executor.run(self.plan)
         return self.exec_result
+
+    def run_delta(
+        self, appended: Mapping[str, Union[Table, Mapping[str, Sequence]]]
+    ) -> ExecResult:
+        """Incremental execution phase: absorb appended source rows without
+        re-running the pipeline from scratch.
+
+        ``appended`` maps source-table name to the new rows — either a
+        ready :class:`Table` delta (row ids continuing the existing table)
+        or a plain column mapping, which is encoded against the current
+        catalog table via :func:`~repro_torch.core.table.encode_delta_like`
+        (string columns extend the shared dictionary vocabulary).
+
+        The appended rows become fresh partitions with freshly built zone
+        maps; materialized stages whose operator prefix is append-safe are
+        *extended* by running only the delta through the prefix
+        (:meth:`Executor.run_delta` / :meth:`IntermediateStore.put_delta`),
+        while non-append-safe stages re-run with the reason recorded in the
+        result's :class:`~repro_torch.core.executor.DeltaReport` (surfaced by
+        :meth:`explain`).  A pure append run leaves the generation base of
+        :meth:`answer_generation` untouched and only moves row watermarks —
+        cached answers stay warm and extendable via :meth:`query_delta`.
+
+        Stages the budget planner dropped stay dropped (the delta is not
+        re-planned); a run that had to re-run stages re-evicts over the
+        grown sizes like :meth:`run` does.
+        """
+        assert self.lineage_plan is not None and self.exec_result is not None, \
+            "run() first"
+        deltas: Dict[str, Table] = {}
+        for name, d in appended.items():
+            if not isinstance(d, Table):
+                d = encode_delta_like(self.catalog[name], d)
+            deltas[name] = d
+        mat = dict(self.lineage_plan.materialize)
+        dropped = self.mat_plan.dropped if self.mat_plan is not None else set()
+        for nid in dropped:
+            mat.pop(nid, None)
+        self.exec_result = self.executor.run_delta(
+            self.plan, deltas, materialize=mat, store=self.store,
+            num_partitions=self.num_partitions,
+            partition_rows=self.partition_rows, prev=self.exec_result,
+        )
+        if (self.store is not None and self.exec_result.delta is not None
+                and self.exec_result.delta.full_invalidation):
+            # stage re-runs changed sizes wholesale: re-plan the budget as a
+            # full run() would (pure appends skip this — eviction would
+            # needlessly invalidate warm answers)
+            budget = (self.budget_bytes if self.store.budget_bytes is None
+                      else self.store.budget_bytes)
+            missing = ({s.node_id for s in self.lineage_plan.stages}
+                       - set(self.store.stages))
+            self.mat_plan = plan_materialization(
+                self.lineage_plan, self.store.sizes(), budget,
+                unavailable=missing,
+                partition_sizes=self.store.partition_sizes(),
+                prune_rates=self.store.prune_estimates(),
+                cost_model=self.scan_engine.cost_model,
+                disk_budget_bytes=self.disk_budget_bytes,
+            )
+            if self.mat_plan.dropped:
+                self.store.evict(self.mat_plan.dropped)
+                for nid in self.mat_plan.dropped:
+                    self.exec_result.materialized.pop(nid, None)
+            self._apply_tiering()
+        elif self.store is not None:
+            # a pure append rebuilds extended stages in RAM (put_delta):
+            # re-demote the ones the plan holds on the disk tier
+            self._apply_tiering()
+        return self.exec_result
+
+    def attach_store(self, store: IntermediateStore) -> None:
+        """Adopt ``store`` (e.g. reloaded via ``checkpoint.store_io``) as this
+        plan's materialized intermediates, so later queries read the spilled
+        encoded stages instead of re-materializing the pipeline."""
+        assert self.exec_result is not None, "run() or run_unmodified() first"
+        if self.lineage_plan is None:
+            self.infer()
+        self.store = store
+        budget = self.budget_bytes if store.budget_bytes is None else store.budget_bytes
+        self.exec_result.store = store
+        self.exec_result.materialized = dict(store.stages)
+        # stages the spilled store no longer holds (evicted before the spill)
+        # are unavailable regardless of budget, as is anything downstream of
+        # them in the param-binding chain
+        missing = {s.node_id for s in self.lineage_plan.stages} - set(store.stages)
+        self.mat_plan = plan_materialization(
+            self.lineage_plan, store.sizes(), budget, unavailable=missing,
+            partition_sizes=store.partition_sizes(),
+            prune_rates=store.prune_estimates(),
+            cost_model=self.scan_engine.cost_model,
+            disk_budget_bytes=self.disk_budget_bytes,
+        )
+        if self.mat_plan.dropped:
+            store.evict(self.mat_plan.dropped)
+            for nid in self.mat_plan.dropped:
+                self.exec_result.materialized.pop(nid, None)
+        self._apply_tiering()
 
     # ------------------------------------------------------------------ #
     def _output_binding(
@@ -604,8 +814,205 @@ class PredTrace:
                 superset_set.update(tabs)
         if superset_set:
             detail["superset_tables"] = sorted(superset_set)
-        return LineageAnswer(lineage, time.perf_counter() - t0, detail,
-                             precise={t: t not in superset_set for t in lineage})
+        ans = LineageAnswer(lineage, time.perf_counter() - t0, detail,
+                            precise={t: t not in superset_set for t in lineage})
+        if not superset_set and not fallback:
+            # precise, fully materialized answer: stash the final binding
+            # chain so a later append-only run can extend it in place
+            ans.delta_ctx = (binding, param_stage, param_col, stage_sel)
+        return ans
+
+    # ------------------------------------------------------------------ #
+    def query_delta(self, cached: LineageAnswer,
+                    old_token) -> Optional[LineageAnswer]:
+        """Extend a cached precise answer across append-only delta runs.
+
+        ``cached`` must be an answer this PredTrace produced earlier (its
+        stashed binding chain is reused) and ``old_token`` the
+        :meth:`answer_generation` token it was stamped with.  When the
+        current token is :func:`delta_compatible` — same generation base,
+        row watermarks only moved forward — the lineage is brought up to
+        date by rescanning *only* the delta regions: each materialized
+        stage's appended rows are checked against the cached binding (any
+        match would rebind downstream params, so the extension bails), then
+        each source predicate scans just the fresh partitions
+        (:func:`~repro_torch.core.table.delta_view`) with zone-map pruning, and
+        newly matching row ids are unioned into the cached lineage.  An
+        output row whose pruned partition set is untouched by the append is
+        served with zero rescanned partitions.
+
+        Returns the extended answer — ``detail["delta"]`` carries
+        rescanned-vs-warm partition counts — or ``None`` when the cached
+        answer cannot be soundly extended (base mismatch, imprecise or
+        budget-degraded answer, or a stage delta matched); the caller then
+        falls back to a full :meth:`query`.
+        """
+        new_token = self.answer_generation()
+        if not delta_compatible(old_token, new_token):
+            return None
+        ctx = cached.delta_ctx
+        if (ctx is None or not cached.all_precise()
+                or cached.detail.get("superset_tables")):
+            return None
+        if self.mat_plan is not None and self.mat_plan.dropped:
+            return None
+        from .cost import prog_atoms
+
+        t0 = time.perf_counter()
+        binding, param_stage, param_col, sel = ctx
+        stage_sel = sel() if callable(sel) else sel
+        old = {m[:2]: m[2] for m in old_token[1]}
+        lp = self.lineage_plan
+        cm = self.scan_engine.cost_model
+        # binding-independent predicate analysis, computed once per plan —
+        # the warm path answers many bindings against the same predicates
+        cached_an = getattr(self, "_delta_an", None)
+        if cached_an is None or cached_an[0] is not lp:
+            an = {}
+            for i, sp in enumerate(lp.source_preds):
+                pair = (params_of(sp.pred), _eq_only_params(sp.pred))
+                an["src", i] = (pair[0] | set(sp.guards), pair)
+            for st in lp.stages:
+                pair = (params_of(st.run_pred), _eq_only_params(st.run_pred))
+                an["st", int(st.node_id)] = (pair[0] | set(st.guards), pair)
+            cached_an = self._delta_an = (lp, an)
+        an = cached_an[1]
+
+        # 1. stage deltas: a new stage row matching the cached binding would
+        # rebind downstream params, invalidating the cached chain — bail to
+        # a full query.  (Old stage rows never change on the append path.)
+        for st in lp.stages:
+            if not st.params_out:
+                continue
+            stobj = self.exec_result.materialized.get(st.node_id)
+            if stobj is None:
+                return None
+            old_n = old.get(("s", int(st.node_id)))
+            if old_n is None:
+                return None
+            new_n = int(stobj.nrows)
+            if new_n == old_n:
+                continue
+            needed, st_pair = an["st", int(st.node_id)]
+            if needed - set(binding):
+                return None
+            if any(_guard_dead(binding.get(g)) for g in st.guards):
+                continue  # selection is empty regardless of appended rows
+            vkey = (table_uid(stobj), old_n, new_n)
+            vcache = getattr(self, "_delta_views", None)
+            if vcache is None:
+                vcache = self._delta_views = {}
+            view = vcache.get(vkey)
+            if view is None:
+                if len(vcache) > 64:
+                    vcache.clear()
+                if isinstance(stobj, StoredTable):
+                    view = stobj.take(np.arange(old_n, new_n))
+                else:
+                    view = Table({k: np.asarray(v)[old_n:new_n]
+                                  for k, v in stobj.cols.items()},
+                                 stobj.dicts, stobj.name)
+                vcache[vkey] = view
+            m = _eval_pred(st.run_pred, view, binding, param_stage,
+                           stage_sel, param_col, analysis=st_pair)
+            if m.any():
+                return None  # stage_delta_match: binding would change
+
+        # 2. source predicates: scan only the delta view, union new rids
+        lineage: Dict[str, np.ndarray] = dict(cached.lineage)
+        tables_detail: Dict[str, Dict[str, int]] = {}
+        for sp_i, sp in enumerate(lp.source_preds):
+            needed, sp_pair = an["src", sp_i]
+            if needed - set(binding):
+                return None
+            t = self.catalog[sp.table]
+            old_n = old.get(("t", sp.table))
+            if old_n is None:
+                return None
+            total_parts = (t.num_partitions
+                           if isinstance(t, PartitionedTable) else 1)
+            td = tables_detail.setdefault(
+                sp.table, {"delta_rows": int(t.nrows - old_n),
+                           "new_rids": 0, "rescanned_partitions": 0,
+                           "warm_partitions": total_parts})
+            if t.nrows == old_n:
+                continue  # untouched table: fully warm
+            if sp.pred == FALSE or any(
+                    _guard_dead(binding.get(g)) for g in sp.guards):
+                continue  # dead predicate matched nothing before or now
+            # keyed by monotone table uid (never recycled), so an appended
+            # table can never alias a stale cached view
+            vkey = (table_uid(t), old_n, int(t.nrows))
+            vcache = getattr(self, "_delta_views", None)
+            if vcache is None:
+                vcache = self._delta_views = {}
+            view = vcache.get(vkey)
+            if view is None:
+                if len(vcache) > 64:
+                    vcache.clear()
+                view, _off = delta_view(t, old_n)
+                vcache[vkey] = view
+            prog, atoms = None, 1
+            try:
+                prog = self.scan_engine.compile(sp.pred)
+                atoms = prog_atoms(prog)
+            except (KeyError, TypeError, ValueError):
+                pass
+            alive = None
+            if (prog is not None and isinstance(view, PartitionedTable)
+                    and view.num_partitions > 0):
+                try:
+                    alive = prune_zone_maps(prog, view.zone_maps, binding)
+                except (KeyError, TypeError, ValueError):
+                    alive = None
+            if alive is not None and not alive.any():
+                # every fresh partition provably empty for this binding: the
+                # answer's pruned partition set is untouched — zero rescans
+                continue
+            choice = cm.choose(
+                f"delta:{sp.table}",
+                [("delta_rescan", float(view.nrows) * atoms),
+                 ("serial", float(t.nrows) * atoms)],
+                meta={"table": sp.table, "delta_rows": int(view.nrows),
+                      "total_rows": int(t.nrows)},
+            )
+            scan_t = t if choice.route == "serial" else view
+            t1 = time.perf_counter()
+            # both routes scan through the engine, so a delta view's scan
+            # takes the same device-or-host decision as any other table
+            # (the reference evaluates delta views with the host tree
+            # evaluator; the answers are the same)
+            m = _eval_pred(sp.pred, scan_t, binding, param_stage, stage_sel,
+                           param_col, scan=self._scan, analysis=sp_pair)
+            rids = scan_t.rids()[m]
+            choice.done(time.perf_counter() - t1)
+            if choice.route == "serial":
+                scanned = total_parts
+            elif alive is not None:
+                scanned = int(alive.sum())
+            else:
+                scanned = (view.num_partitions
+                           if isinstance(view, PartitionedTable) else 1)
+            td["rescanned_partitions"] = max(td["rescanned_partitions"],
+                                             scanned)
+            td["warm_partitions"] = total_parts - td["rescanned_partitions"]
+            if len(rids):
+                prev = lineage.get(sp.table, np.array([], dtype=np.int64))
+                before = len(prev)
+                lineage[sp.table] = np.union1d(prev, np.unique(rids))
+                td["new_rids"] += int(len(lineage[sp.table]) - before)
+
+        detail: Dict[str, object] = {"delta": {
+            "rescanned_partitions": sum(
+                d["rescanned_partitions"] for d in tables_detail.values()),
+            "warm_partitions": sum(
+                d["warm_partitions"] for d in tables_detail.values()),
+            "tables": tables_detail,
+        }}
+        ans = LineageAnswer(lineage, time.perf_counter() - t0, detail,
+                            precise={t: True for t in lineage})
+        ans.delta_ctx = (binding, param_stage, param_col, stage_sel)
+        return ans
 
     # ------------------------------------------------------------------ #
     def explain(self, t_o: Union[int, Dict[str, object]]) -> "PlanReport":
@@ -698,6 +1105,19 @@ class PredTrace:
                        if self.lineage_plan is not None else 0),
             "stages_dropped": len(mp.dropped) if mp is not None else 0,
         }
+        if mp is not None and (mp.disk or mp.disk_budget_bytes != 0):
+            # out-of-core tier: which stages the planner demoted (still
+            # precise, memmap-scanned) and the store's residency/IO counters
+            pipeline["disk_budget_bytes"] = mp.disk_budget_bytes
+            pipeline["stages_disk"] = sorted(mp.disk)
+            if self.store is not None:
+                pipeline["tiers"] = self.store.tier_summary()
+        if self.exec_result is not None and self.exec_result.delta is not None:
+            # most recent run_delta: per-stage extend/rerun actions with the
+            # append-unsafety reasons, and the store's fast-append counters
+            pipeline["delta"] = self.exec_result.delta.to_dict()
+            if self.store is not None:
+                pipeline["delta"]["store"] = dict(self.store.delta_stats)
         routes: Dict[str, int] = {}
         for d in decisions:
             routes[d.chosen] = routes.get(d.chosen, 0) + 1
@@ -963,6 +1383,10 @@ class PredTrace:
             ans = LineageAnswer(lineages[b], dt / B,
                                 precise={t: True for t in lineages[b]})
             ans.detail["batch"] = B
+            # stage selections build lazily: query_delta only consults them
+            # for the tuple/row-wise binding shapes
+            ans.delta_ctx = (bindings[b], param_stage, param_col,
+                             (lambda b=b: stage_sels(b)))
             out.append(ans)
         return out
 

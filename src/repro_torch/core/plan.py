@@ -248,6 +248,56 @@ def plan_materialization(
                                disk_budget_bytes=disk_budget_bytes)
 
 
+# --------------------------------------------------------------------------- #
+# append-safety classification (the incremental runtime's stage classifier)
+# --------------------------------------------------------------------------- #
+
+
+def append_unsafe_reason(node: O.Node) -> Optional[str]:
+    """Why this single operator cannot stream an appended suffix, or None
+    when it distributes over row appends.
+
+    An operator is *append-safe* when ``f(old ++ delta) == f(old) ++
+    f(delta)`` under its execution semantics: running only the delta rows
+    through it yields exactly the rows its full re-run would append.  That
+    holds for the row-local unary operators — Source, Filter, Project,
+    RowTransform, Alias, FilterUDF (the PR-5 ``filter_like`` annotation is a
+    per-row keep decision), and MapUDF only under ``one_to_one`` (outputs
+    are a pure function of the row's key columns).  A ``row_preserving``
+    MapUDF is **not** safe: it emits exactly the input rows in order, but
+    its vectorized body sees the whole column and may couple rows (e.g.
+    normalize by a column mean), so the old output prefix could change.
+    Everything multi-row — joins, grouping, sorts, unions, windows, expand /
+    opaque UDFs — reorders, merges, or regroups rows and falls back to a
+    full re-run."""
+    if isinstance(node, (O.Source, O.Filter, O.Project, O.RowTransform,
+                         O.Alias, O.FilterUDF)):
+        return None
+    if isinstance(node, O.MapUDF):
+        if node.annotation.kind == "one_to_one":
+            return None
+        return ("row_preserving MapUDF: the vectorized body sees the whole "
+                "column, so f(old ++ delta) == f(old) ++ f(delta) is not "
+                "guaranteed")
+    return f"{type(node).__name__} does not distribute over row appends"
+
+
+def subtree_append_unsafe(node: O.Node) -> Optional[str]:
+    """First append-unsafety reason in ``node``'s subtree (source-inclusive),
+    or None when the whole prefix is append-safe — the incremental runtime's
+    per-stage classifier.  A safe subtree is a chain of row-local unary
+    operators over one source, so streaming the delta rows through it
+    produces exactly the stage's new suffix."""
+    r = append_unsafe_reason(node)
+    if r is not None:
+        return f"node {node.id} ({type(node).__name__}): {r}"
+    for c in node.children:
+        r = subtree_append_unsafe(c)
+        if r is not None:
+            return r
+    return None
+
+
 class _FailureAt(Exception):
     def __init__(self, node: O.Node, path: List[O.Node]):
         self.node = node

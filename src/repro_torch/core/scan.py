@@ -1471,7 +1471,10 @@ class TorchBackend(NumpyBackend):
     def _stored_lane_for(st, c) -> np.ndarray:
         """Lane for one stored-slab column spec: a plain column name uploads
         its int32 code lane; ``("runs", col)`` uploads the rle run *values*
-        — a lane of length n_runs, not n_rows."""
+        — a lane of length n_runs, not n_rows.  A lane is always a fresh
+        host array (``astype`` copies), so a disk-tier stage's read-only
+        memmapped payload pages in once per upload and the slab cache
+        keeps only the device copy."""
         if isinstance(c, tuple):
             return st.enc[c[1]].run_values.astype(np.int32)
         return TorchBackend._stored_lane(st.enc[c])

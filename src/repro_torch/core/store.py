@@ -44,14 +44,20 @@ decoded table.
 
 :class:`IntermediateStore` is the executor-facing container: stages are
 ``put()`` during the pipeline-execution phase, queried through ``scan()``
-(in situ) or ``table()`` (decoded, cached), and ``evict()``-ed by the budget
-planner.  This is the RAM tier; the reference's disk tier and checkpoint
-spill are not part of this package yet.
+(in situ) or ``table()`` (decoded, cached), ``evict()``-ed by the budget
+planner, extended in place by ``put_delta()`` after an append, and moved
+between two residency tiers: RAM, and a disk tier (``demote()`` /
+``promote()``) whose payloads are read-only ``np.memmap`` views over spill
+files written by ``repro_torch.checkpoint.store_io``, scanned in place by
+the same atom programs (the ``disk_insitu`` route, or the device in-situ
+route, which uploads the memmapped code lanes).
 """
 
 from __future__ import annotations
 
 import itertools
+import shutil
+import tempfile
 import threading
 import time
 from dataclasses import dataclass
@@ -121,6 +127,11 @@ class EncodedColumn:
     def isin_mask(self, vals: np.ndarray) -> Optional[np.ndarray]:
         return None
 
+    # (meta, arrays) for checkpoint spill; see ``column_from_state``
+    def state(self) -> Tuple[Dict, Dict[str, np.ndarray]]:
+        raise NotImplementedError
+
+
 class PlainColumn(EncodedColumn):
     kind = "plain"
 
@@ -143,6 +154,10 @@ class PlainColumn(EncodedColumn):
 
     def isin_mask(self, vals):
         return np.isin(self.values, vals)
+
+    def state(self):
+        return {"kind": self.kind}, {"values": self.values}
+
 
 class DictColumn(EncodedColumn):
     """Codes into the sorted unique values; comparisons stay in code space."""
@@ -197,6 +212,10 @@ class DictColumn(EncodedColumn):
         lut[pos[hit]] = True
         return lut[self.codes]
 
+    def state(self):
+        return {"kind": self.kind}, {"codes": self.codes, "values": self.values}
+
+
 class RLEColumn(EncodedColumn):
     """Run-length encoding; atoms evaluate per run and expand the run mask."""
 
@@ -236,6 +255,12 @@ class RLEColumn(EncodedColumn):
 
     def isin_mask(self, vals):
         return np.repeat(np.isin(self.run_values, vals), self.run_lengths)
+
+    def state(self):
+        return {"kind": self.kind}, {
+            "run_values": self.run_values, "run_lengths": self.run_lengths,
+        }
+
 
 class FORColumn(EncodedColumn):
     """Frame-of-reference: ``value = packed + base`` with packed unsigned."""
@@ -280,6 +305,13 @@ class FORColumn(EncodedColumn):
         else:
             t = arr.astype(np.int64) - self.base
         return np.isin(self.packed.astype(np.int64), t)
+
+    def state(self):
+        return (
+            {"kind": self.kind, "base": self.base, "dtype": self.dtype.str},
+            {"packed": self.packed},
+        )
+
 
 class DeltaColumn(EncodedColumn):
     """Sorted integers as per-block anchors + small intra-block deltas.
@@ -393,6 +425,14 @@ class DeltaColumn(EncodedColumn):
             m[lo:hi] = False
         return m
 
+    def state(self):
+        return (
+            {"kind": self.kind, "n": self.n, "dtype": self.dtype.str,
+             "block": self.block},
+            {"anchors": self.anchors, "deltas": self.deltas},
+        )
+
+
 class BitPackColumn(EncodedColumn):
     """Booleans / validity masks at one bit per row."""
 
@@ -417,6 +457,10 @@ class BitPackColumn(EncodedColumn):
     def nbytes(self):
         return int(self.bits.nbytes)
 
+    def state(self):
+        return {"kind": self.kind, "n": self.n}, {"bits": self.bits}
+
+
 class ScaledColumn(EncodedColumn):
     """Floats that are exactly ``k / scale`` (integral floats, money with two
     decimals) stored as an encoded *integer* column.  Encode verifies bitwise
@@ -440,6 +484,15 @@ class ScaledColumn(EncodedColumn):
 
     def nbytes(self):
         return self.inner.nbytes() + 8
+
+    def state(self):
+        meta, arrays = self.inner.state()
+        return (
+            {"kind": self.kind, "scale": self.scale, "dtype": self.dtype.str,
+             "inner": meta},
+            arrays,
+        )
+
 
 # --------------------------------------------------------------------------- #
 # stats pass + encoding choice
@@ -603,6 +656,143 @@ def encode_column(arr: np.ndarray) -> EncodedColumn:
     return PlainColumn(arr)
 
 
+def column_from_state(meta: Dict, arrays: Dict[str, np.ndarray]) -> EncodedColumn:
+    """Rebuild an :class:`EncodedColumn` from its ``state()`` (checkpoint IO)."""
+    kind = meta["kind"]
+    if kind == "plain":
+        return PlainColumn(arrays["values"])
+    if kind == "dict":
+        return DictColumn(arrays["codes"], arrays["values"])
+    if kind == "rle":
+        return RLEColumn(arrays["run_values"], arrays["run_lengths"])
+    if kind == "for":
+        return FORColumn(arrays["packed"], meta["base"], np.dtype(meta["dtype"]))
+    if kind == "delta":
+        return DeltaColumn(arrays["anchors"], arrays["deltas"], meta["n"],
+                           np.dtype(meta["dtype"]), meta["block"])
+    if kind == "bitpack":
+        return BitPackColumn(arrays["bits"], meta["n"])
+    if kind == "scaled":
+        return ScaledColumn(column_from_state(meta["inner"], arrays),
+                            meta["scale"], np.dtype(meta["dtype"]))
+    raise ValueError(f"unknown encoded-column kind {kind!r}")
+
+
+# --------------------------------------------------------------------------- #
+# append-extension of encoded columns (the incremental runtime's store path)
+# --------------------------------------------------------------------------- #
+
+
+def _append_fast(enc: EncodedColumn, arr: np.ndarray) -> Optional[EncodedColumn]:
+    """Append-extended copy of ``enc`` without decoding its rows, or None
+    when the encoding has no cheap append path for these values."""
+    if isinstance(enc, PlainColumn):
+        return PlainColumn(np.concatenate([enc.values, arr]))
+    if isinstance(enc, RLEColumn):
+        tail = RLEColumn.encode(arr)
+        rv, rl = enc.run_values, enc.run_lengths
+        # merge the boundary run so the encoded form stays canonical
+        # (NaN != NaN keeps float NaN runs separate, matching encode())
+        if rv.size and tail.run_values.size and tail.run_values[0] == rv[-1]:
+            rl = rl.copy()
+            rl[-1] += tail.run_lengths[0]
+            rv2 = np.concatenate([rv, tail.run_values[1:]])
+            rl2 = np.concatenate([rl, tail.run_lengths[1:]])
+        else:
+            rv2 = np.concatenate([rv, tail.run_values])
+            rl2 = np.concatenate([rl, tail.run_lengths])
+        return RLEColumn(rv2, rl2)
+    if isinstance(enc, DictColumn):
+        if arr.dtype.kind == "f" and np.isnan(arr).any():
+            return None
+        nu = len(enc.values)
+        if nu == 0:
+            return None
+        pos = np.minimum(np.searchsorted(enc.values, arr), nu - 1)
+        if not bool((enc.values[pos] == arr).all()):
+            return None  # out-of-vocabulary values: re-encode
+        return DictColumn(
+            np.concatenate([enc.codes, pos.astype(enc.codes.dtype)]),
+            enc.values)
+    if isinstance(enc, FORColumn):
+        if arr.dtype.kind not in "iu":
+            return None
+        t = arr.astype(np.int64) - enc.base
+        lim = np.iinfo(enc.packed.dtype)
+        if t.size and (int(t.min()) < 0 or int(t.max()) > int(lim.max)):
+            return None  # leaves the frame: re-encode
+        return FORColumn(
+            np.concatenate([enc.packed, t.astype(enc.packed.dtype)]),
+            enc.base, enc.dtype)
+    if isinstance(enc, BitPackColumn):
+        if enc.n % 8:
+            return None  # unaligned tail byte: repack from scratch
+        return BitPackColumn(
+            np.concatenate([enc.bits, np.packbits(arr.astype(bool))]),
+            enc.n + len(arr))
+    if isinstance(enc, ScaledColumn):
+        if arr.dtype.kind != "f" or not bool(np.isfinite(arr).all()):
+            return None
+        scaled = np.round(arr * enc.scale)
+        if (float(np.abs(scaled).max(initial=0)) >= 2**31
+                or not np.array_equal(scaled / enc.scale, arr)):
+            return None  # delta rows aren't exactly k/scale: re-encode
+        inner = _append_fast(enc.inner, scaled.astype(enc.inner.dtype))
+        if inner is None:
+            return None
+        return ScaledColumn(inner, enc.scale, enc.dtype)
+    if isinstance(enc, DeltaColumn):
+        # the anchor binary-search needs global monotonicity, so only a
+        # nondecreasing tail that continues the sequence (rid columns, sorted
+        # keys) can extend in place; anything else re-encodes
+        if arr.dtype.kind not in "iu" or enc.n == 0:
+            return None
+        vals = arr.astype(np.int64)
+        nb = (enc.n + enc.block - 1) // enc.block
+        last = int(enc._block_vals(nb - 1)[enc.n - (nb - 1) * enc.block - 1])
+        d = np.empty(len(vals), dtype=np.int64)
+        d[0] = vals[0] - last
+        d[1:] = vals[1:] - vals[:-1]
+        if d.min(initial=0) < 0:
+            return None  # tail breaks sortedness
+        pos = enc.n + np.arange(len(vals))
+        starts = pos % enc.block == 0
+        d[starts] = 0  # anchors carry block-start absolute values
+        lim = np.iinfo(enc.deltas.dtype)
+        if int(d.max(initial=0)) > int(lim.max):
+            return None  # deltas outgrow the packed width: re-encode
+        return DeltaColumn(
+            np.concatenate([enc.anchors, arr[starts]]).astype(enc.dtype),
+            np.concatenate([enc.deltas, d.astype(enc.deltas.dtype)]),
+            enc.n + len(vals), enc.dtype, enc.block)
+    return None  # unknown encodings re-encode
+
+
+def append_encoded(enc: EncodedColumn, arr: np.ndarray) -> EncodedColumn:
+    """Append-extended copy of one encoded column.
+
+    Cheap per-kind paths (:func:`_append_fast`) extend the encoded form
+    without touching the old rows — plain concat, RLE boundary-run merge,
+    in-vocabulary dict codes, in-frame FOR packing, byte-aligned bitpack
+    concat, and scaled wrappers over any of those.  Anything else falls
+    back to re-encoding the decoded concatenation (which may also pick a
+    different encoding, exactly as a cold ``put`` would).  Always returns
+    a NEW column; the input is never mutated, so cached references to the
+    old encoding stay valid."""
+    arr = np.asarray(arr)
+    if len(arr) == 0:
+        return enc
+    return _append(enc, arr)[0]
+
+
+def _append(enc: EncodedColumn, arr: np.ndarray) -> Tuple[EncodedColumn, bool]:
+    """:func:`append_encoded` of a non-empty ``arr``, and whether the cheap
+    encoded-form path took it (False: re-encoded)."""
+    out = _append_fast(enc, arr)
+    if out is not None:
+        return out, True
+    return encode_column(np.concatenate([enc.decode(), arr])), False
+
 
 # --------------------------------------------------------------------------- #
 # stored tables
@@ -660,6 +850,10 @@ class StoredTable:
         # non-aliasing identity token for uid-keyed engine/backend caches
         # (shared counter with Table; never recycled, unlike id())
         self.uid = next_table_uid()
+        # residency tier: "ram" (arrays resident) or "disk" (payload arrays
+        # are read-only memmaps over spilled files — bytes fault in lazily
+        # as scans touch them; zone maps stay RAM-eager either way)
+        self.tier = "ram"
         # per-partition min/max/null stats built on the raw columns before
         # encoding; in-situ scans prune whole partitions against them
         self.zone_maps = zone_maps
@@ -1028,6 +1222,19 @@ class IntermediateStore:
         self.stages: Dict[int, StoredTable] = {}
         self.backend = InSituBackend()
         self.generation: int = next(_STORE_GENERATIONS)
+        # incremental-append diagnostics: stages extended in place by
+        # ``put_delta`` and how their columns grew (fast encoded append vs
+        # decode-and-re-encode) — surfaced by explain()/benchmarks
+        self.delta_stats: Dict[str, int] = {
+            "delta_puts": 0, "cols_fast": 0, "cols_reencoded": 0}
+        # out-of-core tier state: spill root (created on first demote, owned
+        # by this store, removed by close()), the manifest entry per demoted
+        # stage, and a per-stage version counter so a re-demote after an
+        # append never overwrites files an open memmap may still read
+        self._spill_dir: Optional[str] = None
+        self._disk_entries: Dict[int, Dict] = {}
+        self._disk_versions: Dict[int, int] = {}
+        self.tier_stats: Dict[str, int] = {"demotions": 0, "promotions": 0}
 
     # ------------------------------------------------------------------ #
     def put(self, node_id: int, table: Table) -> StoredTable:
@@ -1045,6 +1252,62 @@ class IntermediateStore:
         self.stages[node_id] = st
         self.generation = next(_STORE_GENERATIONS)
         return st
+
+    def put_delta(self, node_id: int, delta: Table) -> StoredTable:
+        """Append ``delta``'s rows to an existing stored stage.
+
+        The incremental runtime's store path: each encoded column grows via
+        :func:`append_encoded` (cheap encoded-form appends where the
+        encoding allows, re-encode otherwise), and partitioned stages extend
+        their zone maps tail-only — complete old partitions keep their
+        statistics byte-identical, with the ragged tail gathered from the
+        encoding rather than decoding whole columns.  The stage is replaced
+        by a NEW :class:`StoredTable` (fresh ``uid``, so uid-keyed engine
+        caches built against the old object can never alias it).
+
+        Unlike :meth:`put`, this does **not** bump ``generation``: an append
+        moves the stage's row-count watermark — visible in the lineage
+        answer token — while every answer computed over the old rows stays
+        valid.  An empty delta is a no-op returning the current stage.
+
+        Args:
+            node_id: plan-node id of an already-stored stage (KeyError if
+                absent — the caller decides between ``put`` and
+                ``put_delta``).
+            delta: decoded rows to append (must cover the stage's columns).
+        Returns:
+            StoredTable: the extended encoded stage now held by the store.
+        """
+        st = self.stages[node_id]
+        if delta.nrows == 0:
+            return st
+        missing = set(st.enc) - set(delta.cols)
+        if missing:
+            raise ValueError(f"put_delta: delta lacks columns {sorted(missing)}")
+        enc2: Dict[str, EncodedColumn] = {}
+        fast = 0
+        for c, e in st.enc.items():
+            enc2[c], was_fast = _append(e, np.asarray(delta.cols[c]))
+            fast += was_fast
+        new_n = st.nrows + delta.nrows
+        zm = st.zone_maps
+        if zm is not None:
+            base = (zm.nrows // zm.part_rows) * zm.part_rows
+            tail_idx = np.arange(base, st.nrows, dtype=np.int64)
+            tail = {c: np.concatenate([st.enc[c].gather(tail_idx),
+                                       np.asarray(delta.cols[c])])
+                    for c in st.enc}
+            zm = zm.extend_tail(tail, new_n)
+        dicts = dict(st.dicts)
+        dicts.update({k: v for k, v in delta.dicts.items() if k in enc2})
+        st2 = StoredTable(enc2, dicts, st.name, new_n,
+                          st.raw_nbytes + delta.nbytes(), zm)
+        self.stages[node_id] = st2
+        ds = self.delta_stats
+        ds["delta_puts"] += 1
+        ds["cols_fast"] += fast
+        ds["cols_reencoded"] += len(enc2) - fast
+        return st2
 
     def __contains__(self, node_id: int) -> bool:
         return node_id in self.stages
@@ -1065,6 +1328,115 @@ class IntermediateStore:
             evicted = self.stages.pop(nid, None) is not None or evicted
         if evicted:
             self.generation = next(_STORE_GENERATIONS)
+
+    # ------------------------------------------------------------------ #
+    # out-of-core tier: demote cold stages to disk instead of dropping them
+    # ------------------------------------------------------------------ #
+    def _spill_root(self) -> str:
+        if self._spill_dir is None:
+            self._spill_dir = tempfile.mkdtemp(prefix="predtrace-oocore-")
+        return self._spill_dir
+
+    def demote(self, node_id: int) -> StoredTable:
+        """Move one stage to the disk tier.
+
+        The stage's encoded payload arrays are written to the store's spill
+        root (fsynced, same bytes as the RAM form — no re-encode) and the
+        stage is replaced by a memmap-backed :class:`StoredTable`: zone maps
+        stay RAM-resident for pruning, payload bytes fault in lazily as
+        scans touch them, and every scan route (in-situ atoms, candidate
+        gathers, decode fallback) answers bit-identically to the RAM tier.
+
+        Does **not** bump ``generation``: the stage's rows are unchanged,
+        so every cached lineage answer computed against it stays valid —
+        only the residency (and therefore the scan cost) moved.
+
+        Args:
+            node_id: plan-node id of a stored stage (KeyError if absent).
+        Returns:
+            StoredTable: the disk-tier stage now held by the store (the
+            stage itself when it already lives on disk).
+        """
+        from ..checkpoint import store_io
+
+        st = self.stages[node_id]
+        if st.tier == "disk":
+            return st
+        root = self._spill_root()
+        version = self._disk_versions.get(node_id, -1) + 1
+        self._disk_versions[node_id] = version
+        entry = store_io.save_stage(root, node_id, st, version=version)
+        st2 = store_io.open_stage(root, entry, zone_maps=st.zone_maps)
+        stale = self._disk_entries.get(node_id)
+        self._disk_entries[node_id] = entry
+        self.stages[node_id] = st2
+        if stale is not None:
+            store_io.remove_stage_files(root, stale)
+        self.tier_stats["demotions"] += 1
+        return st2
+
+    def promote(self, node_id: int) -> StoredTable:
+        """Bring a disk-tier stage back to RAM (payload arrays copied out of
+        the memmaps; the spilled files are unlinked).  Like :meth:`demote`
+        this never bumps ``generation`` — answers stay valid across tier
+        moves.  A RAM-tier stage is returned unchanged."""
+        from ..checkpoint import store_io
+
+        st = self.stages[node_id]
+        if st.tier != "disk":
+            return st
+        enc: Dict[str, EncodedColumn] = {}
+        for c, e in st.enc.items():
+            meta, arrays = e.state()
+            enc[c] = column_from_state(
+                meta, {k: np.array(v, copy=True) for k, v in arrays.items()})
+        st2 = StoredTable(enc, {k: list(v) for k, v in st.dicts.items()},
+                          st.name, st.nrows, st.raw_nbytes, st.zone_maps)
+        self.stages[node_id] = st2
+        entry = self._disk_entries.pop(node_id, None)
+        if entry is not None and self._spill_dir is not None:
+            store_io.remove_stage_files(self._spill_dir, entry)
+        self.tier_stats["promotions"] += 1
+        return st2
+
+    def disk_stages(self) -> List[int]:
+        """Node ids of stages currently resident on the disk tier."""
+        return sorted(nid for nid, st in self.stages.items()
+                      if st.tier == "disk")
+
+    def disk_nbytes(self) -> int:
+        """Encoded bytes of disk-tier stages (counted against the disk
+        budget, not the RAM budget)."""
+        return int(sum(st.nbytes() for st in self.stages.values()
+                       if st.tier == "disk"))
+
+    def tier_summary(self) -> Dict[str, object]:
+        """Residency snapshot for explain()/ServiceStats: stage ids and
+        bytes per tier plus cumulative demote/promote counts."""
+        disk = self.disk_stages()
+        return {
+            "ram_stages": sorted(nid for nid in self.stages
+                                 if nid not in set(disk)),
+            "disk_stages": disk,
+            "ram_bytes": self.nbytes() - self.disk_nbytes(),
+            "disk_bytes": self.disk_nbytes(),
+            **self.tier_stats,
+        }
+
+    def close(self) -> None:
+        """Release the out-of-core spill root (all demoted stages' files).
+        Disk-tier stages already open keep working through their memmaps
+        until dropped; reopening demoted stages is no longer possible."""
+        d, self._spill_dir = self._spill_dir, None
+        self._disk_entries.clear()
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+
+    def __del__(self):  # best-effort: close() is the real contract
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------ #
     def scan(self, node_id: int, pred, binding: Optional[Dict[str, object]],
@@ -1129,12 +1501,25 @@ class IntermediateStore:
                 seed_fn = getattr(engine.backend, "_device_seed", None)
                 cands.append(("device_insitu", w_full,
                               seed_fn() if seed_fn is not None else {}))
-        cands.append(("decode", w_full))
-        # a cached decoded view makes the decode cost sunk — the in-situ
-        # path can no longer win, so it isn't offered then
-        if st._table is None:
-            route, kw = self._insitu_candidate(st, prog)
-            cands.append((route, w_full, kw))
+        if st.tier == "disk":
+            # reload-then-decode pays the same page faults PLUS a full
+            # decode of every column, so a demoted stage offers only the
+            # page-fault-bound mmap in-situ route (same atom programs,
+            # its own seeded bandwidth slope; per-column fallbacks inside
+            # the backend still decode lazily when an encoding defers)
+            from .dispatch import disk_scan_probe
+
+            probe = disk_scan_probe()
+            cands.append(("disk_insitu", w_full,
+                          {"cutover": float(probe.value),
+                           "confidence": probe.confidence}))
+        else:
+            cands.append(("decode", w_full))
+            # a cached decoded view makes the decode cost sunk — the
+            # in-situ path can no longer win, so it isn't offered then
+            if st._table is None:
+                route, kw = self._insitu_candidate(st, prog)
+                cands.append((route, w_full, kw))
         meta = {"rows": int(n), "atoms": int(A)}
         if alive is not None:
             meta.update(partitions=P, alive=ns)
@@ -1160,9 +1545,17 @@ class IntermediateStore:
                     engine.stats.bump(scans=1, insitu_scans=1,
                                       device_chosen=1)
             elif route == "decode":
-                mask = engine.backend.scan(prog, st.to_table(), binding)
+                # a demoted stage must not pin its full decode in RAM — the
+                # planner put it on disk because RAM is what's scarce
+                mask = engine.backend.scan(
+                    prog, st.to_table(cache=st.tier != "disk"), binding)
                 self._note_unpruned(engine, alive, P)
                 engine.stats.bump(scans=1, insitu_scans=1, decode_chosen=1)
+            elif route == "disk_insitu":
+                mask = self.backend.scan(prog, st, binding)
+                self._note_unpruned(engine, alive, P)
+                engine.stats.bump(scans=1, insitu_scans=1,
+                                  disk_insitu_chosen=1)
             else:  # insitu / insitu_heavy
                 mask = self.backend.scan(prog, st, binding)
                 self._note_unpruned(engine, alive, P)

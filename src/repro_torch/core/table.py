@@ -259,6 +259,78 @@ class ZoneMaps:
         frac = np.nan_to_num(frac, nan=1.0)
         return float(np.clip(frac, 1.0 / max(self.n_partitions, 1), 1.0).mean())
 
+    def state(self) -> Tuple[Dict, Dict[str, np.ndarray]]:
+        """(meta, arrays) for checkpoint spill (``checkpoint/store_io``)."""
+        meta = {"part_rows": self.part_rows, "nrows": self.nrows,
+                "n_partitions": self.n_partitions, "columns": sorted(self.lo)}
+        arrays: Dict[str, np.ndarray] = {}
+        for c in self.lo:
+            arrays[f"lo.{c}"] = self.lo[c]
+            arrays[f"hi.{c}"] = self.hi[c]
+            arrays[f"nulls.{c}"] = self.nulls[c]
+            arrays[f"distinct.{c}"] = self.distinct[c]
+        return meta, arrays
+
+    @staticmethod
+    def from_state(meta: Dict, arrays: Mapping[str, np.ndarray]) -> "ZoneMaps":
+        zm = ZoneMaps(meta["part_rows"], meta["nrows"], meta["n_partitions"])
+        for c in meta["columns"]:
+            zm.lo[c] = np.asarray(arrays[f"lo.{c}"])
+            zm.hi[c] = np.asarray(arrays[f"hi.{c}"])
+            zm.nulls[c] = np.asarray(arrays[f"nulls.{c}"])
+            zm.distinct[c] = np.asarray(arrays[f"distinct.{c}"])
+        return zm
+
+    def extend(self, cols: Mapping[str, np.ndarray], nrows_new: int) -> "ZoneMaps":
+        """Zone maps for an append-extended table, rebuilding only the tail.
+
+        Partitions strictly below the old complete-partition watermark keep
+        their statistics untouched (an append never changes their rows); the
+        previously-ragged tail partition and every fresh delta partition are
+        rebuilt from the new full-length column arrays.  Returns a NEW
+        ZoneMaps — cached answers hold references to the old one.  An empty
+        delta (``nrows_new == nrows``) returns ``self`` unchanged."""
+        nrows_new = int(nrows_new)
+        if nrows_new < self.nrows:
+            raise ValueError(
+                f"ZoneMaps.extend: shrink from {self.nrows} to {nrows_new}")
+        if nrows_new == self.nrows:
+            return self
+        base = (self.nrows // self.part_rows) * self.part_rows
+        return self.extend_tail(
+            {c: np.asarray(v)[base:] for c, v in cols.items()}, nrows_new)
+
+    def extend_tail(self, tail: Mapping[str, np.ndarray],
+                    nrows_new: int) -> "ZoneMaps":
+        """Like :meth:`extend`, but takes only the *tail* column slices —
+        rows from the complete-partition watermark (``(nrows // part_rows) *
+        part_rows``) onward.  The encoded store uses this to extend a stage's
+        zone maps from a per-encoding gather of the ragged tail plus the
+        delta rows, without decoding whole columns."""
+        nrows_new = int(nrows_new)
+        if nrows_new < self.nrows:
+            raise ValueError(
+                f"ZoneMaps.extend_tail: shrink from {self.nrows} to {nrows_new}")
+        pr = self.part_rows
+        first_dirty = self.nrows // pr
+        base = first_dirty * pr
+        tz = build_zone_maps(tail, pr, nrows_new - base)
+        out = ZoneMaps(pr, nrows_new, first_dirty + tz.n_partitions)
+        # a column must carry full-length stat arrays or none: keep the
+        # intersection of old and tail stats (identical for a schema-stable
+        # append)
+        for c in tz.lo:
+            if first_dirty and c not in self.lo:
+                continue
+            out.lo[c] = np.concatenate([self.lo[c][:first_dirty], tz.lo[c]])
+            out.hi[c] = np.concatenate([self.hi[c][:first_dirty], tz.hi[c]])
+            out.nulls[c] = np.concatenate(
+                [self.nulls[c][:first_dirty], tz.nulls[c]])
+            out.distinct[c] = np.concatenate(
+                [self.distinct[c][:first_dirty], tz.distinct[c]])
+        return out
+
+
 def _never_prune_bounds(dtype: np.dtype) -> Tuple[object, object]:
     """(lo, hi) sentinels spanning the whole domain of ``dtype`` — zone-map
     bounds that can never prove a miss, so the partition always survives."""
@@ -376,6 +448,28 @@ class PartitionedTable(Table):
         for i in range(self.num_partitions):
             yield self.partition(i)
 
+    def append_partition(self, delta: Table) -> "PartitionedTable":
+        """Append-extended copy: ``delta``'s rows become fresh partitions.
+
+        Column arrays are concatenated once; the zone maps are *extended*
+        (:meth:`ZoneMaps.extend`) — only the previously-ragged tail partition
+        and the new delta partitions get rebuilt statistics, every complete
+        old partition keeps its stats byte-identical.  The result is a new
+        table (new ``uid``); ``self`` is untouched, so cached answers and
+        engine caches keyed on the old table stay valid.  An empty delta
+        returns ``self`` (a no-op, never an exception)."""
+        if delta.nrows == 0:
+            return self
+        missing = set(self.cols) - set(delta.cols)
+        if missing:
+            raise ValueError(
+                f"append_partition: delta lacks columns {sorted(missing)}")
+        cols = {k: np.concatenate([v, delta.cols[k]])
+                for k, v in self.cols.items()}
+        zm = self.zone_maps.extend(cols, self.nrows + delta.nrows)
+        return PartitionedTable(cols, self.dicts, self.name,
+                                part_rows=self.part_rows, zone_maps=zm)
+
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"PartitionedTable({self.name or '?'}, {self.nrows} rows, "
                 f"{self.num_partitions} x {self.part_rows}-row partitions)")
@@ -418,6 +512,97 @@ def rows_of_alive(alive: np.ndarray, part_rows: int, nrows: int) -> np.ndarray:
     ])
 
 
+def append_rows(table: Table, delta: Table) -> Table:
+    """Append-extended copy of ``table`` (layout-preserving).
+
+    A :class:`PartitionedTable` grows via :meth:`~PartitionedTable
+    .append_partition` (fresh partitions, extended zone maps); a plain Table
+    concatenates.  An empty delta returns ``table`` itself — appends are
+    pure, the input table is never mutated."""
+    if delta.nrows == 0:
+        return table
+    if isinstance(table, PartitionedTable):
+        return table.append_partition(delta)
+    missing = set(table.cols) - set(delta.cols)
+    if missing:
+        raise ValueError(f"append_rows: delta lacks columns {sorted(missing)}")
+    cols = {k: np.concatenate([v, delta.cols[k]]) for k, v in table.cols.items()}
+    return Table(cols, table.dicts, table.name)
+
+
+def encode_delta_like(base: Table, data: Mapping[str, Sequence]) -> Table:
+    """Delta rows encoded against ``base``'s column layout.
+
+    String columns reuse (and extend, in place) the base table's vocabulary,
+    so every existing code stays stable — the append-only invariant the
+    incremental runtime relies on.  Numeric deltas for dict-encoded columns
+    are taken as already-encoded codes.  Row ids continue from
+    ``base.nrows``."""
+    cols: Dict[str, np.ndarray] = {}
+    n: Optional[int] = None
+    for k in base.cols:
+        if k == RID:
+            continue
+        if k not in data:
+            raise KeyError(f"encode_delta_like: delta lacks column {k!r}")
+        arr = np.asarray(data[k])
+        if arr.dtype.kind in ("U", "S", "O"):
+            vocab = base.dicts.setdefault(k, [])
+            index = {s: i for i, s in enumerate(vocab)}
+            out = np.empty(len(arr), dtype=np.int32)
+            for i, s in enumerate(arr.astype(str)):
+                code = index.get(s)
+                if code is None:
+                    code = len(vocab)
+                    vocab.append(s)
+                    index[s] = code
+                out[i] = code
+            arr = out.astype(base.cols[k].dtype, copy=False)
+        else:
+            arr = arr.astype(base.cols[k].dtype, copy=False)
+        cols[k] = arr
+        if n is None:
+            n = len(arr)
+        elif n != len(arr):
+            raise ValueError(
+                f"encode_delta_like: column {k} length {len(arr)} != {n}")
+    n = n or 0
+    cols[RID] = base.nrows + np.arange(n, dtype=np.int64)
+    return Table(cols, base.dicts, base.name)
+
+
+def delta_view(table: Table, old_nrows: int) -> Tuple[Table, int]:
+    """Suffix view covering every row an append beyond ``old_nrows`` could
+    have touched, plus the view's global row offset.
+
+    For a :class:`PartitionedTable` the cut aligns *down* to the partition
+    boundary (the ragged tail partition was rebuilt by the append) and the
+    view carries the sliced zone maps — a delta rescan prunes inside the
+    fresh partitions exactly like a full scan would.  Matches at
+    ``view_index + offset >= old_nrows`` are genuinely new rows; matches
+    below that are re-confirmations of old tail rows (safe to union)."""
+    n = table.nrows
+    old_nrows = int(old_nrows)
+    if old_nrows >= n:
+        return empty_like(table), n
+    if isinstance(table, PartitionedTable) and table.num_partitions > 0:
+        pr = table.part_rows
+        p0 = min(old_nrows // pr, table.num_partitions - 1)
+        lo = p0 * pr
+        zm0 = table.zone_maps
+        zm = ZoneMaps(pr, n - lo, zm0.n_partitions - p0)
+        for c in zm0.lo:
+            zm.lo[c] = zm0.lo[c][p0:]
+            zm.hi[c] = zm0.hi[c][p0:]
+            zm.nulls[c] = zm0.nulls[c][p0:]
+            zm.distinct[c] = zm0.distinct[c][p0:]
+        cols = {k: v[lo:] for k, v in table.cols.items()}
+        return PartitionedTable(cols, table.dicts, table.name,
+                                part_rows=pr, zone_maps=zm), lo
+    cols = {k: v[old_nrows:] for k, v in table.cols.items()}
+    return Table(cols, table.dicts, table.name), old_nrows
+
+
 def concat_tables(tables: Sequence[Table]) -> Table:
     """Concatenate tables with identical schemas (used by Union)."""
     if not tables:
@@ -429,6 +614,9 @@ def concat_tables(tables: Sequence[Table]) -> Table:
     dicts = dict(first.dicts)
     return Table(cols, dicts, first.name)
 
+
+def empty_like(t: Table) -> Table:
+    return Table({k: v[:0] for k, v in t.cols.items()}, t.dicts, t.name)
 
 
 def catalog_from_numpy(d: Mapping[str, Mapping[str, np.ndarray]],

@@ -183,7 +183,9 @@ def test_entry_points_default_to_the_card(dbs, monkeypatch):
         PredTrace(port_db, plan)
     with pytest.raises(RuntimeError):
         catalog_from_numpy({"t": {"a": np.arange(3)}})
-    for kw in ({"parallel": True}, {"mesh": object()},
-               {"disk_budget_bytes": None}):
+    for kw in ({"parallel": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             PredTrace(port_db, plan, device="cpu", **kw)
+    # the disk tier is ported: a two-tier budget builds
+    PredTrace(port_db, plan, device="cpu", store=True, budget_bytes=0,
+              disk_budget_bytes=None).close()
