@@ -14,7 +14,12 @@ Phases, each printing one JSON line:
                  the library yardstick of pure membership (with K4's kernel
                  on the same random keys beside it).
 4. device_ratio — the launch path's marginal cost per row x atom over the
-                 host numpy scan's (the cost model's device seed).
+                 host numpy scan's (the cost model's device seed), then one
+                 ``route_ratio`` line for each other seeded route (host
+                 in-situ compares, K2 membership through the torch backend,
+                 run-space RLE on the card, in-situ compares over a demoted
+                 stage's memmaps), each naming the ``core/cost.py``
+                 constant it seeds.
 5. main path   — TPC-H q3 (comparison variant) and q12 (set variant) at
                  ``--sf`` through ``PredTrace(device="cuda")``: infer, run,
                  query(0), query_batch(first 16 rows), once with the device
@@ -68,6 +73,27 @@ Phases, each printing one JSON line:
                  cutover.  The forced run's K1/K2 launches are counted from 0
                  and kept; each is replayed against the plain version and the
                  largest of each variant is timed beside its bound.
+8. partition   — after phase 7, on phase 5's catalog: q3 and q12 through the
+                 partition runtime, rows 0-3 by ``query``, ``query_batch``
+                 and ``query_iterative`` (or ``distributed_refine``), every
+                 answer identical to an unpartitioned numpy-backend
+                 PredTrace: ``PredTrace(num_partitions=64, parallel=4)``
+                 forced (cutovers 0, the device carry taken wherever the
+                 kernel can take the program) and auto-routed,
+                 ``PredTrace(mesh=("cuda:0",))``, and ``distributed_refine``
+                 over ``("cuda:0",)`` with and without 64 partitions and
+                 over ``("cuda:0", "cuda:0")``.  Lines carry each run's K1/K2
+                 launches by route (carry, shard, partitioned, engine), the
+                 partition counters, the slab uploads (a shard slab uploaded
+                 twice in one run fails it) and each call's seconds; the
+                 measured pool cutover has its own line.  Every launch is
+                 replayed against the plain version and the largest of each
+                 route and variant is timed beside its bound.
+9. baselines   — the paper's comparison at phase 5's scale: the coverage
+                 profile over the 22 TPC-H queries (PredTrace 22, Trace 12,
+                 Panda 5), then for q3 and q12 PredTrace's ``query(0)`` on
+                 the card against each lazy baseline that supports the
+                 query, every answer equal to the eager oracle.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
@@ -377,36 +403,109 @@ def phase_kernels(n: int):
 # --------------------------------------------------------------------------- #
 # phase 4: the cost model's device seed
 # --------------------------------------------------------------------------- #
-def phase_device_ratio():
-    """Marginal seconds per row x atom of the device launch path (cached
-    slab, operand upload, kernel, mask readback) over the host numpy scan's
-    (``dispatch.host_row_cost``) — the value ``cost.DEVICE_RATIO_CUDA``
-    seeds."""
-    from repro_torch.core import dispatch
-    from repro_torch.core.scan import TorchBackend
+def best_s(fn, reps: int = 10) -> float:
+    """Least host seconds of ``reps`` calls of ``fn`` after one warm-up;
+    every call here ends in a host mask (a device launch in its readback)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return min(ts)
 
-    be = TorchBackend(device="cuda")
+
+def phase_device_ratio(smi: str, device: str = "cuda",
+                       sizes=(1 << 21, 1 << 23)):
+    """Marginal seconds per unit of cost-model work of each seeded route over
+    the host numpy scan's per row x atom (``dispatch.host_row_cost``): the
+    slope between two sizes, which the fixed costs cancel out of.  One line
+    per route, each naming the ``core/cost.py`` constant it seeds:
+
+    - ``device``: the launch path (cached slab, operand upload, kernel, mask
+      readback) on 4 atoms — ``DEVICE_RATIO_CUDA``;
+    - ``insitu``: host code-space compares on an encoded ``StoredTable``
+      (two frame-of-reference columns, 2 atoms) — ``INSITU_RATIO``;
+    - ``device_member``: a K2 launch of one ``IN`` atom through
+      ``TorchBackend.scan`` — ``MEMBER_RATIO``;
+    - ``insitu_rle``: one atom on an RLE column (runs of 32) through
+      ``scan_stored`` on the card, work = runs + rows as the store charges
+      it — ``RLE_RATIO``;
+    - ``disk_insitu``: the ``insitu`` scan over the stage's memmapped
+      payloads after ``demote`` (page cache warm) — ``DISK_RATIO``."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.expr import Col, IsIn, ParamSet, land
+    from repro_torch.core.scan import ScanEngine, ScanStats, TorchBackend
+    from repro_torch.core.store import IntermediateStore
+    from repro_torch.core.table import Table
+
+    be = TorchBackend(device=device)
     rng = np.random.default_rng(3)
     a = 4
-    sizes = (1 << 21, 1 << 23)
     slabs = {n: rng.integers(-1000, 1000, (a, n)).astype(np.int32) for n in sizes}
     thr = rng.integers(-1000, 1000, (1, a)).astype(np.int32)
-
-    def best(n):
-        be._bench_launch(slabs[n], thr)
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            be._bench_launch(slabs[n], thr)  # ends in the mask readback
-            ts.append(time.perf_counter() - t0)
-        return min(ts)
-
-    t1, t2 = best(sizes[0]), best(sizes[1])
-    slope = (t2 - t1) / ((sizes[1] - sizes[0]) * a)
+    t = {n: best_s(lambda n=n: be._bench_launch(slabs[n], thr)) for n in sizes}
+    del slabs
+    slope = (t[sizes[1]] - t[sizes[0]]) / ((sizes[1] - sizes[0]) * a)
     rc = dispatch.host_row_cost()
     emit({"phase": "device_ratio", "device_s_per_row_atom": slope,
           "host_s_per_row_atom": rc, "ratio": slope / rc,
-          "launch_s": {str(sizes[0]): t1, str(sizes[1]): t2}})
+          "launch_s": {str(n): v for n, v in t.items()}})
+
+    forced = TorchBackend(device=device, device_cutover=0)
+    stats = ScanStats()
+    forced.attach_stats(stats)
+    compile_ = ScanEngine("numpy").compile
+    p_insitu = compile_(land(Col("a") >= 100, Col("b") < 300))
+    p_rle = compile_(Col("r") >= 500)
+    p_member = compile_(IsIn(Col("a"), ParamSet("v")))
+    member = {"v": rng.choice(1000, 256, replace=False).astype(np.int64)}
+    times = {r: {} for r in ("insitu", "device_member", "insitu_rle",
+                             "disk_insitu")}
+    work = {r: {} for r in times}
+    for n in sizes:
+        tab = Table({"a": rng.integers(0, 1000, n),
+                     "b": rng.integers(-500, 500, n),
+                     "r": np.repeat(rng.integers(0, 1000, n // 32 + 1),
+                                    32)[:n]}, {}, "ratio")
+        store = IntermediateStore()
+        try:
+            st = store.put(1, tab)
+            if (st.encodings() != {"a": "for", "b": "for", "r": "rle"}
+                    or store._insitu_candidate(st, p_insitu)[0] != "insitu"):
+                raise AssertionError(f"unexpected stage encodings "
+                                     f"{st.encodings()}")
+            times["insitu"][n] = best_s(lambda: store.backend.scan(p_insitu, st, {}))
+            work["insitu"][n] = 2 * n
+            fused0 = stats.member_fused_scans
+            times["device_member"][n] = best_s(
+                lambda: forced.scan(p_member, tab, member))
+            if stats.member_fused_scans < fused0 + 11:
+                raise AssertionError("device_member did not take K2")
+            work["device_member"][n] = n
+            times["insitu_rle"][n] = best_s(
+                lambda: forced.scan_stored(p_rle, st, {}, force=True))
+            work["insitu_rle"][n] = int(st.enc["r"].run_values.size) + n
+            disk = store.demote(1)
+            times["disk_insitu"][n] = best_s(
+                lambda: store.backend.scan(p_insitu, disk, {}))
+            work["disk_insitu"][n] = 2 * n
+        finally:
+            store.close()
+        del tab
+    constant = {"insitu": "INSITU_RATIO", "device_member": "MEMBER_RATIO",
+                "insitu_rle": "RLE_RATIO", "disk_insitu": "DISK_RATIO"}
+    out = {}
+    for route, ts in times.items():
+        w0, w1 = work[route][sizes[0]], work[route][sizes[1]]
+        s = (ts[sizes[1]] - ts[sizes[0]]) / (w1 - w0)
+        out[route] = s / rc
+        emit({"phase": "route_ratio", "route": route, "constant": constant[route],
+              "s_per_work": s, "host_s_per_row_atom": rc, "ratio": s / rc,
+              "seconds": {str(n): v for n, v in ts.items()},
+              "work": {str(n): v for n, v in work[route].items()},
+              "nvidia_smi": smi})
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -529,18 +628,25 @@ def phase_main_path(sf: float):
     return launches["forced"], db, calls
 
 
+def launch_meta(args) -> dict:
+    """The shape of one kept ``pred_filter_batch`` launch, as
+    ``measure_batch`` takes it."""
+    thr = args["thresholds"].cpu().numpy()
+    m = len(args.get("set_cols", ()))
+    return dict(n=int(args["cols"].shape[1]), k=thr.shape[0], a=thr.shape[1],
+                m=m, lo=args["blk_lo"].cpu().numpy(),
+                hi=args["blk_hi"].cpu().numpy(), thr=thr,
+                keys=int(args["set_slab"].numel()) if m else 0)
+
+
 def phase_main_path_kernels(calls) -> dict:
     """K1 and K2 on the operands the forced main path gave them, call by
     call, against the plain version (these launches come after the main
     path's counts were read).  Returns the records by variant."""
     recs = {"cmp": [], "sets": []}
     for i, (where, args) in enumerate(calls):
-        thr = args["thresholds"].cpu().numpy()
-        lo, hi = args["blk_lo"].cpu().numpy(), args["blk_hi"].cpu().numpy()
-        m = len(args.get("set_cols", ()))
-        meta = dict(n=int(args["cols"].shape[1]), k=thr.shape[0],
-                    a=thr.shape[1], m=m, lo=lo, hi=hi, thr=thr,
-                    keys=int(args["set_slab"].numel()) if m else 0)
+        meta = launch_meta(args)
+        m = meta["m"]
         extra = dict(query=where["query"], stage=where["name"])
         if m:
             extra["set_len"] = args["set_len"].cpu().numpy().tolist()
@@ -932,13 +1038,15 @@ def phase_serve(db, smi: str):
         raise AssertionError(f"serving path missed a kernel variant: {launches}")
     if len(calls) != launches["cmp"] + launches["sets"]:
         raise AssertionError(f"captured {len(calls)} calls of {launches}")
-    replay_serve_launches(calls)
+    replay_launches(calls, "serve", lambda where, args: (variant(args),))
     emit({"phase": "serve_total", "seconds": time.perf_counter() - t_phase})
 
 
-def replay_serve_launches(calls) -> None:
+def replay_launches(calls, phase: str, group) -> dict:
     """Every kept launch against the plain version (exact equality), then
-    the largest K1 and K2 launch timed beside their bound."""
+    the largest launch of each group (``group(where, args)``, a tuple of
+    names) timed beside its bound: one ``{phase}_replay`` line and one
+    ``{phase}_kernel`` line per group.  Returns those records by group."""
     from repro_torch.kernels.pred_filter import pred_filter_batch
     from repro_torch.kernels.pred_filter.ref import _batch_bool
 
@@ -950,26 +1058,374 @@ def replay_serve_launches(calls) -> None:
                            args.get("set_off"), args.get("set_len"),
                            args.get("iters", 1))
         if not torch.equal(got, want):
-            raise AssertionError(f"serve launch #{i} ({where}) differs from "
+            raise AssertionError(f"{phase} launch #{i} ({where}) differs from "
                                  f"its plain version")
-        variant = "sets" if args.get("set_cols") else "cmp"
+        key = group(where, args)
         size = args["thresholds"].shape[0] * args["cols"].shape[1]
-        if size > largest.get(variant, (-1,))[0]:
-            largest[variant] = (size, i)
-    emit({"phase": "serve_replay", "launches_checked": len(calls),
+        if size > largest.get(key, (-1,))[0]:
+            largest[key] = (size, i)
+    emit({"phase": f"{phase}_replay", "launches_checked": len(calls),
           "all_equal": True})
-    for variant, (_, i) in sorted(largest.items()):
+    recs = {}
+    for key, (_, i) in sorted(largest.items()):
         where, args = calls[i]
-        thr = args["thresholds"].cpu().numpy()
-        m = len(args.get("set_cols", ()))
-        meta = dict(n=int(args["cols"].shape[1]), k=thr.shape[0],
-                    a=thr.shape[1], m=m, lo=args["blk_lo"].cpu().numpy(),
-                    hi=args["blk_hi"].cpu().numpy(), thr=thr,
-                    keys=int(args["set_slab"].numel()) if m else 0)
-        label = (f"{'K2' if m else 'K1'} serve largest launch "
-                 f"{where['query']} {where['name']} #{i}")
-        measure_batch("serve_kernel", label, args, meta, query=where["query"],
-                      stage=where["name"])
+        meta = launch_meta(args)
+        extra = {k: where[k] for k in ("run", "route") if k in where}
+        label = (f"{'K2' if meta['m'] else 'K1'} {phase} largest "
+                 f"{' '.join(key)} launch {where['query']} "
+                 f"{where.get('run', '')} {where['name']} #{i}")
+        recs[key] = measure_batch(f"{phase}_kernel", label, args, meta,
+                                  query=where["query"], stage=where["name"],
+                                  **extra)
+    return recs
+
+
+def variant(args) -> str:
+    return "sets" if args.get("set_cols") else "cmp"
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the partition runtime (pool, device carry, mesh shards)
+# --------------------------------------------------------------------------- #
+# the card of phases 8 and 9 (a mesh names it as "cuda:0")
+CARD = "cuda"
+PARTITION_QUERIES = ("q3", "q12")
+PARTITION_ROWS = (0, 1, 2, 3)
+PARTITION_COUNTERS = ("scans", "device_scans", "member_fused_scans",
+                      "partitions_scanned", "partitions_pruned",
+                      "fanout_scans", "carry_refused")
+
+
+def label_partition_routes(stage: dict, pin_carry: bool) -> callable:
+    """Marks ``stage["route"]`` while the partition executor works, so each
+    captured launch names its route: ``shard`` (a mesh shard's scan),
+    ``carry`` (a partitioned scan launched over the whole table),
+    ``partitioned`` (surviving partitions scanned as slices); launches
+    outside the executor keep ``engine``.  With ``pin_carry`` the carry is
+    taken wherever the kernel can take the program (the forced run), not
+    only where the cost model prefers it.  Returns the unwrapper."""
+    from repro_torch.core.distributed import PartitionExecutor
+    from repro_torch.core.scan import TorchBackend
+
+    real = {"dev": PartitionExecutor._device_scan,
+            "fan": PartitionExecutor._fanout_scan,
+            "carry": TorchBackend.fused_carry_ok}
+
+    def scoped(fn, label):
+        def run(self, *a, **kw):
+            prev, stage["route"] = stage.get("route"), label
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                stage["route"] = prev
+        return run
+
+    def carry(self, prog, table, binding, surviving_rows=None):
+        if pin_carry:
+            ok = bool(prog.cmp_atoms) and bool(
+                self._split_cmp(prog, table, binding)[0])
+        else:
+            ok = real["carry"](self, prog, table, binding, surviving_rows)
+        if ok:
+            stage["route"] = "carry"
+        return ok
+
+    PartitionExecutor._device_scan = scoped(real["dev"], "shard")
+    PartitionExecutor._fanout_scan = scoped(real["fan"], "partitioned")
+    TorchBackend.fused_carry_ok = carry
+
+    def unwrap():
+        PartitionExecutor._device_scan = real["dev"]
+        PartitionExecutor._fanout_scan = real["fan"]
+        TorchBackend.fused_carry_ok = real["carry"]
+    return unwrap
+
+
+def track_slab_builds(keys: list, upload: dict) -> callable:
+    """Records (backend, table, columns) of every slab the torch backend
+    builds and uploads (``_slab_entry`` calls that reached ``_build_entry``,
+    whose calls and bytes ``upload`` tallies).  Returns the unwrapper."""
+    from repro_torch.core.scan import TorchBackend
+    from repro_torch.core.table import table_uid
+
+    unwrap_build = tally_method(TorchBackend, "_build_entry", upload,
+                                lambda a, out: a[0].nbytes)
+    real = TorchBackend._slab_entry
+
+    def entry(self, table, cols):
+        before = upload["calls"]
+        out = real(self, table, cols)
+        if upload["calls"] != before:
+            keys.append((id(self), table_uid(table), tuple(cols)))
+        return out
+
+    TorchBackend._slab_entry = entry
+
+    def unwrap():
+        TorchBackend._slab_entry = real
+        unwrap_build()
+    return unwrap
+
+
+def check_answers(got, want, label) -> None:
+    if len(got) != len(want) or not all(
+            _answers_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: answers differ from numpy")
+
+
+def partition_oracle(db) -> dict:
+    """Unpartitioned numpy-backend PredTrace answers of rows 0-3 by query:
+    query, query_batch, query_iterative, and the iterative plan with each
+    row's binding for ``distributed_refine``."""
+    from repro_torch.core import PredTrace, ScanEngine
+    from repro_torch.tpch import ALL_QUERIES
+
+    out = {}
+    for q in PARTITION_QUERIES:
+        pt = PredTrace(db, ALL_QUERIES[q](db), scan_engine=ScanEngine("numpy"))
+        pt.infer()
+        pt.run()
+        rows = [r for r in PARTITION_ROWS if r < pt.exec_result.output.nrows]
+        rec = {"rows": rows,
+               "query": [pt.query(r) for r in rows],
+               "query_batch": pt.query_batch(rows),
+               "query_iterative": [pt.query_iterative(r) for r in rows]}
+        rec["iter_plan"] = pt.iter_plan
+        rec["bindings"] = [pt._output_binding(r, pt.iter_plan.out_params)
+                           for r in rows]
+        out[q] = rec
+        pt.close()
+    return out
+
+
+def drive_partitioned(db, q, oracle, stage, **kw) -> dict:
+    """A ``PredTrace(device=CARD, **kw)`` of ``q``: run, then rows 0-3
+    through query, query_batch and query_iterative, each call timed and
+    every answer held to the numpy oracle.  Returns the call times and the
+    engine's counters."""
+    from repro_torch.core import PredTrace
+    from repro_torch.tpch import ALL_QUERIES
+
+    ref = oracle[q]
+    rows = ref["rows"]
+    secs = {}
+    with PredTrace(db, ALL_QUERIES[q](db), device=CARD, **kw) as pt:
+        for name, call in (("infer", pt.infer), ("run", pt.run)):
+            stage["name"] = name
+            t0 = time.perf_counter()
+            call()
+            secs[f"{name}_s"] = time.perf_counter() - t0
+        got = {}
+        for name in ("query", "query_batch", "query_iterative"):
+            stage["name"] = name
+            t0 = time.perf_counter()
+            if name == "query_batch":
+                got[name] = pt.query_batch(rows)
+            else:
+                got[name] = [getattr(pt, name)(r) for r in rows]
+            secs[f"{name}_s"] = time.perf_counter() - t0
+            check_answers(got[name], ref[name], f"{q} {kw} {name}")
+        st = pt.scan_engine.stats
+        counters = {k: getattr(st, k) for k in PARTITION_COUNTERS}
+        cutover = None
+        if pt.partition_exec is not None and pt.partition_exec.mesh is None:
+            cutover = pt.partition_exec.min_parallel_rows
+    return {"seconds": secs, "counters": counters,
+            "parallel_cutover_rows": cutover}
+
+
+def drive_refine(db, q, oracle, stage, mesh, num_partitions=None) -> dict:
+    """``distributed_refine`` of rows 0-3 over ``mesh`` on one engine,
+    each answer held to the numpy oracle's ``query_iterative``."""
+    from repro_torch.core import ScanEngine, distributed_refine
+
+    ref = oracle[q]
+    eng = ScanEngine("torch", device=CARD)
+    secs, iters = [], []
+    for r, binding, want in zip(ref["rows"], ref["bindings"],
+                                ref["query_iterative"]):
+        stage["name"] = f"distributed_refine row {r}"
+        t0 = time.perf_counter()
+        ans = distributed_refine(ref["iter_plan"], db, binding, mesh=mesh,
+                                 engine=eng, num_partitions=num_partitions)
+        secs.append(time.perf_counter() - t0)
+        iters.append(ans.detail["iterations"])
+        if sorted(ans.lineage) != sorted(want.lineage) or not all(
+                np.array_equal(np.sort(ans.lineage[t]), np.sort(want.lineage[t]))
+                for t in want.lineage):
+            raise AssertionError(f"{q} distributed_refine {mesh} row {r} "
+                                 f"differs from numpy")
+    st = eng.stats
+    return {"seconds": {"distributed_refine_s": secs}, "iterations": iters,
+            "counters": {k: getattr(st, k) for k in PARTITION_COUNTERS}}
+
+
+def phase_partition(db, smi: str) -> None:
+    """Phase 8: q3 and q12 at phase 5's scale through the partition
+    runtime, every answer identical to an unpartitioned numpy-backend
+    PredTrace.  Runs: ``num_partitions=64, parallel=4`` forced (cutovers 0,
+    the carry taken wherever the kernel can take the program) and
+    auto-routed; ``mesh=("cuda:0",)``; ``distributed_refine`` over
+    ``("cuda:0",)`` with and without 64 partitions and over
+    ``("cuda:0", "cuda:0")``.  Every K1/K2 launch is kept with its route
+    (carry, shard, partitioned, engine) and replayed against the plain
+    version afterwards."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    oracle = partition_oracle(db)
+    emit({"phase": "partition_oracle", "seconds": time.perf_counter() - t0,
+          "rows": {q: o["rows"] for q, o in oracle.items()}})
+    runs = [
+        ("parallel forced", True, {"num_partitions": 64, "parallel": 4}),
+        ("parallel auto", False, {"num_partitions": 64, "parallel": 4}),
+        ("mesh cuda:0", False, {"mesh": (f"{CARD}:0",)}),
+        ("distributed_refine cuda:0", False, {"refine_mesh": (f"{CARD}:0",)}),
+        ("distributed_refine cuda:0 64 partitions", False,
+         {"refine_mesh": (f"{CARD}:0",), "num_partitions": 64}),
+        ("distributed_refine cuda:0 x2", False,
+         {"refine_mesh": (f"{CARD}:0", f"{CARD}:0")}),
+    ]
+    calls, stage = [], {}
+    for label, forced, kw in runs:
+        kw = dict(kw)
+        refine_mesh = kw.pop("refine_mesh", None)
+        sharded = refine_mesh is not None or "mesh" in kw
+        for q in PARTITION_QUERIES:
+            unwrap = []
+            if forced:
+                for k in CUTOVER_ENV:
+                    os.environ[k] = "0"
+            start = len(calls)
+            stage.update(query=q, run=label, route="engine")
+            keys, upload = [], new_tally()
+            unwrap.append(capture_batch_launches(calls, stage))
+            unwrap.append(label_partition_routes(stage, pin_carry=forced))
+            unwrap.append(track_slab_builds(keys, upload))
+            try:
+                if refine_mesh is not None:
+                    rec = drive_refine(db, q, oracle, stage, refine_mesh,
+                                       kw.get("num_partitions"))
+                else:
+                    rec = drive_partitioned(db, q, oracle, stage, **kw)
+            finally:
+                for u in reversed(unwrap):
+                    u()
+                for k in CUTOVER_ENV:
+                    os.environ.pop(k, None)
+            by_route = {}
+            for where, args in calls[start:]:
+                key = f"{where['route']} {variant(args)}"
+                by_route[key] = by_route.get(key, 0) + 1
+            repeats = len(keys) - len(set(keys))
+            emit({"phase": "partition", "run": label, "query": q,
+                  "identical_to_numpy": True, "launches": by_route,
+                  **rec, "slab_uploads": dict(upload),
+                  "slab_rebuilds": repeats, "nvidia_smi": smi})
+            if rec.get("parallel_cutover_rows") is not None and not forced:
+                emit({"phase": "partition_parallel_cutover", "workers": 4,
+                      "cutover_rows": rec["parallel_cutover_rows"],
+                      "query": q})
+            if sharded and not any(k.startswith("shard") for k in by_route):
+                raise AssertionError(f"{label} {q}: no shard launch")
+            if sharded and repeats:
+                raise AssertionError(f"{label} {q}: {repeats} shard slabs "
+                                     f"uploaded again")
+            if forced and not any(k.startswith("carry") for k in by_route):
+                raise AssertionError(f"{label} {q}: no carried launch")
+    replay_launches(calls, "partition",
+                    lambda where, args: (where["route"], variant(args)))
+    emit({"phase": "partition_total", "seconds": time.perf_counter() - t_phase})
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the paper's lazy baselines
+# --------------------------------------------------------------------------- #
+BASELINE_QUERIES = ("q3", "q12")
+
+
+def phase_baselines(db, smi: str) -> None:
+    """Phase 9: the paper's comparison at phase 5's scale.  The coverage
+    profile over the 22 TPC-H queries (PredTrace infers every one; Trace
+    and Panda say which they support), then for q3 and q12 the time of
+    PredTrace's ``query(0)`` on the card against each baseline that
+    supports the query (its ``prepare``, then its ``query``), every answer
+    equal to the eager oracle ``oracle_lineage_for_values``.  A baseline
+    that gives up (``Unsupported``: GProM's witness budget) is printed as
+    such."""
+    from repro_torch.core import (PredTrace, ScanEngine,
+                                  oracle_lineage_for_values)
+    from repro_torch.core.baselines import (PandaBaseline, RewriteBaseline,
+                                            TraceBaseline, Unsupported)
+    from repro_torch.core.executor import Executor
+    from repro_torch.tpch import ALL_QUERIES
+
+    t_phase = time.perf_counter()
+    inferred, trace, panda = [], [], []
+    for q, qf in ALL_QUERIES.items():
+        plan = qf(db)
+        PredTrace(db, plan, device=CARD).infer()
+        inferred.append(q)
+        if TraceBaseline(db, plan).supports():
+            trace.append(q)
+        if PandaBaseline(db, plan).supports():
+            panda.append(q)
+    emit({"phase": "baseline_coverage", "queries": len(ALL_QUERIES),
+          "predtrace": len(inferred), "trace": len(trace),
+          "panda": len(panda), "trace_queries": trace,
+          "panda_queries": sorted(panda)})
+    if (len(inferred), len(trace), sorted(panda)) != (
+            22, 12, ["q1", "q10", "q3", "q5", "q6"]):
+        raise AssertionError("coverage profile is not 22 / 12 / 5")
+
+    def sets(lin):
+        return {t: np.unique(np.asarray(list(v) if isinstance(v, frozenset)
+                                        else v)) for t, v in lin.items()
+                if len(v)}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(np.array_equal(a[t], b[t])
+                                              for t in a)
+
+    for q in BASELINE_QUERIES:
+        plan = ALL_QUERIES[q](db)
+        out = Executor(db, scan_engine=ScanEngine("numpy")).run(plan).output
+        values = {c: out.cols[c][0] for c in out.columns}
+        t0 = time.perf_counter()
+        oracle = sets(oracle_lineage_for_values(db, plan, values))
+        rec = {"phase": "baseline", "query": q, "row": 0,
+               "oracle_s": time.perf_counter() - t0, "nvidia_smi": smi}
+        with PredTrace(db, plan, device=CARD) as pt:
+            t0 = time.perf_counter()
+            pt.infer()
+            pt.run()
+            rec["predtrace_prepare_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ans = pt.query(0)
+            rec["predtrace_query_s"] = time.perf_counter() - t0
+            if not same(sets(ans.lineage), oracle):
+                raise AssertionError(f"PredTrace {q} differs from the oracle")
+        for cls in (TraceBaseline, RewriteBaseline, PandaBaseline):
+            b = cls(db, plan)
+            if not b.supports():
+                rec[b.name] = "unsupported"
+                continue
+            t0 = time.perf_counter()
+            b.prepare()
+            prep = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                got = b.query(out, 0)
+            except Unsupported as e:
+                rec[b.name] = {"prepare_s": prep, "unsupported": str(e)}
+                continue
+            secs = time.perf_counter() - t0
+            if not same(sets(got.lineage), oracle):
+                raise AssertionError(f"{b.name} {q} differs from the oracle")
+            rec[b.name] = {"prepare_s": prep, "query_s": secs,
+                           "over_predtrace": secs / rec["predtrace_query_s"]}
+        rec["identical_to_oracle"] = True
+        emit(rec)
+    emit({"phase": "baselines_total", "seconds": time.perf_counter() - t_phase})
 
 
 # --------------------------------------------------------------------------- #
@@ -1297,11 +1753,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     n_lineitem = 6_001_215  # TPC-H sf-1 lineitem rows
     k1, k2 = phase_kernels(n_lineitem)
-    phase_device_ratio()
+    phase_device_ratio(smi)
     main_launches, db, calls = phase_main_path(args.sf)
     main_recs = phase_main_path_kernels(calls)
     del calls
     phase_serve(db, smi)
+    phase_partition(db, smi)
+    phase_baselines(db, smi)
     t6 = time.perf_counter()
     inp = entry_inputs(db)
     del db

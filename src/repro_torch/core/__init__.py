@@ -3,6 +3,7 @@ PyTorch: the same modules as the reference package's ``core``, with device
 scans on a torch device through the hand-written ``pred_filter`` kernel."""
 from . import ops
 from .cost import CostModel, Decision, PlanRecorder, PlanReport, default_cost_model
+from .eager import EagerExecutor, oracle_lineage_for_values
 from .executor import ExecResult, Executor
 from .expr import (
     Col, Expr, IsIn, LineageAnnotation, Lit, Param, ParamSet, UDFExpr, land,
@@ -13,6 +14,7 @@ from .lineage import LineageAnswer, PredTrace
 from .plan import (
     LineageInference, LineagePlan, MaterializationPlan, plan_materialization,
 )
+from .distributed import PartitionExecutor, distributed_refine
 from .pushdown import DEFAULT_REGISTRY, Push, Pushdown, PushdownRuleRegistry
 from .scan import (
     AtomProgram, LRUCache, NumpyBackend, ScanEngine, TorchBackend,
@@ -30,14 +32,16 @@ from .table import (
 __all__ = [
     "ops", "Col", "Expr", "IsIn", "Lit", "Param", "ParamSet", "land", "lnot",
     "lor", "LineageAnnotation", "UDFExpr", "Table", "Executor", "ExecResult",
-    "PredTrace", "LineageAnswer",
+    "EagerExecutor",
+    "oracle_lineage_for_values", "PredTrace", "LineageAnswer",
     "LineageInference", "LineagePlan", "Pushdown", "Push",
     "PushdownRuleRegistry", "DEFAULT_REGISTRY", "IterativeInference",
     "refine", "ScanEngine", "AtomProgram", "NumpyBackend", "TorchBackend",
     "IntermediateStore", "StoredTable", "InSituBackend", "encode_column",
     "MaterializationPlan", "plan_materialization",
     "PartitionedTable", "ZoneMaps", "partition_table", "build_zone_maps",
-    "prune_zone_maps", "LRUCache", "catalog_from_numpy",
+    "prune_zone_maps", "PartitionExecutor", "distributed_refine", "LRUCache",
+    "catalog_from_numpy",
     "LineageService", "LineageRequest", "DeadlineExceeded", "RequestCancelled",
     "CostModel", "Decision", "PlanRecorder", "PlanReport", "default_cost_model",
 ]

@@ -2,7 +2,8 @@
 
 The engine has many ways to answer one lineage query — precise scan vs.
 iterative inference vs. superset, in-situ vs. decode-then-scan vs. device
-dispatch, pruned vs. full serial scan vs. fused-kernel batch.  Every one of
+dispatch, pruned vs. full serial scan vs. thread-pool fan-out vs.
+fused-kernel batch.  Every one of
 those call sites in ``scan.py`` / ``store.py`` / ``plan.py`` consults a
 :class:`CostModel`:
 
@@ -64,20 +65,28 @@ PRUNED_RATIO = 8.0 / 7.0
 # 2.41e-11 s / 1.10e-9 s = 0.0219, measured by ``chip_smoke.py`` (its
 # "device_ratio" line) on an NVIDIA H100 80GB HBM3 at a 700 W power limit
 DEVICE_RATIO_CUDA = 0.022
-# in-situ code-space compares move less memory than decoded int64 compares
-INSITU_RATIO = 0.5
-# fused membership: the in-grid binary search costs log2(|set|) compares per
-# row but replaces numpy's sort+searchsorted isin (which re-walks the column
-# per set), so its seeded marginal cost still undercuts the host probe
-MEMBER_RATIO = 0.5
-# run-space RLE scans touch one lane element per *run* and pay a final
-# np.repeat expansion; charged per row, that is far below a serial scan
-RLE_RATIO = 0.25
-# disk-tier in-situ scans run the same code-space compares over memmapped
-# payloads: cold pages fault in at storage bandwidth, so the seeded marginal
-# cost sits above the RAM in-situ slope (refined online like every route —
-# a warm page cache quickly pulls the learned slope back down)
-DISK_RATIO = 2.0
+# The four seeds below are measured by ``chip_smoke.py`` (its "route_ratio"
+# lines) on the host of an NVIDIA H100 80GB HBM3 at a 700 W power limit:
+# each route's marginal seconds per unit of work, the slope between 2^21
+# and 2^23 rows, over the host serial scan's 8.35e-10 s per row x atom.
+# in-situ code-space compares on frame-of-reference codes (two atoms):
+# 4.24e-10 s / 8.35e-10 s = 0.507
+INSITU_RATIO = 0.51
+# fused membership: one ``IN`` atom (256 keys) through ``TorchBackend.scan``,
+# a K2 launch with its mask readback: 3.52e-10 s / 8.35e-10 s = 0.421
+MEMBER_RATIO = 0.42
+# run-space RLE scans on the card (a launch over the run values, then the
+# host expansion to rows), per unit of runs + rows as the store charges
+# it: 3.80e-10 s / 8.35e-10 s = 0.455
+RLE_RATIO = 0.45
+# disk-tier in-situ scans: the same code-space compares over memmapped
+# payloads with the page cache warm: 4.58e-10 s / 8.35e-10 s = 0.548
+# (refined online like every route: cold pages pull the learned slope up)
+DISK_RATIO = 0.55
+# the parallel cutover was measured with a ~2-atom compare; charging the
+# crossover at cutover * PARALLEL_CAL_ATOMS of work keeps the seeded fan-out
+# threshold at the measured row count for typical predicates
+PARALLEL_CAL_ATOMS = 2
 
 # online refinement: EWMA weight for the learned marginal cost, the minimum
 # observations before the learned slope overrides the seed, and the work
@@ -118,6 +127,7 @@ _DISPATCH_KIND = {
     "device_insitu": "device",
     "device_member": "member",
     "device_float": "device",
+    "parallel": "parallel",
     "insitu": "insitu",
     "insitu_heavy": "insitu",
     "insitu_rle": "rle",

@@ -7,6 +7,8 @@ one they were tuned on:
 * numpy per-atom scan vs. the fused device kernel launch (fixed launch,
   upload and readback overhead vs. better per-row throughput), likewise for
   fused membership and run-space RLE launches,
+* serial partition scan vs. thread-pool fan-out (pool round-trip overhead
+  vs. parallel speedup on the surviving rows),
 * in-situ encoded scan vs. decode-then-scan (per-atom Python + searchsorted
   overhead vs. one amortized decode),
 * a disk-tier stage compared straight through its memmap vs. loaded into
@@ -14,9 +16,10 @@ one they were tuned on:
 
 Each is measured lazily, once per process, on small synthetic workloads,
 cached under a lock, and overridable via environment for CI and tests
-(``PREDTRACE_DEVICE_CUTOVER``, ``PREDTRACE_INSITU_CUTOVER``,
-``PREDTRACE_MEMBER_CUTOVER``, ``PREDTRACE_RLE_CUTOVER``,
-``PREDTRACE_DISK_CUTOVER`` — integer row thresholds).  Every timed device launch ends in its mask readback, which
+(``PREDTRACE_DEVICE_CUTOVER``, ``PREDTRACE_PARALLEL_CUTOVER``,
+``PREDTRACE_INSITU_CUTOVER``, ``PREDTRACE_MEMBER_CUTOVER``,
+``PREDTRACE_RLE_CUTOVER``, ``PREDTRACE_DISK_CUTOVER`` — integer row
+thresholds).  Every timed device launch ends in its mask readback, which
 waits for the device, so host clocks time the whole launch.
 
 Probes are *invalidatable*: each cached measurement is a :class:`Probe`
@@ -64,7 +67,7 @@ class Probe:
                 "remeasures": self.remeasures}
 
 
-# disagreement counters per probe family ("device" / "insitu" / ...):
+# disagreement counters per probe family ("device" / "parallel" / ...):
 # bumped by note_disagreement, consumed as the confidence of the next probe
 _disagreements: Dict[str, int] = {}
 
@@ -176,6 +179,49 @@ def device_scan_probe(key: str, launch: Callable[[np.ndarray, np.ndarray], np.nd
         probe = _mk_probe("device", cut)
         _device_cutovers[key] = probe
         return probe
+
+
+# --------------------------------------------------------------------------- #
+# parallel fan-out cutover (total surviving rows)
+# --------------------------------------------------------------------------- #
+
+_parallel_cutovers: dict = {}
+PARALLEL_FLOOR = 16384  # never fan out below this, whatever the measurement says
+
+
+def parallel_scan_probe(pool, workers: int) -> Probe:
+    """Measured total-row threshold below which serial beats pool fan-out,
+    as a stamped :class:`Probe`: break-even where the pool's submit/join
+    round-trip overhead equals the scan time it can save (≈ (W-1)/W of the
+    serial cost), doubled for safety.
+    """
+    env = _env_int("PREDTRACE_PARALLEL_CUTOVER")
+    if env is not None:
+        return _mk_probe("parallel", env, source="env")
+    key = id(pool)
+    with _LOCK:
+        if key in _parallel_cutovers:
+            return _parallel_cutovers[key]
+
+        def _noop(_):
+            return None
+
+        list(pool.map(_noop, range(workers)))  # warm the pool threads
+        overhead = _best_s(lambda: list(pool.map(_noop, range(workers))))
+        n = 1 << 16
+        arr = np.arange(n, dtype=np.int64)
+        row_cost = _best_s(lambda: (arr > 5) & (arr < n)) / n
+        savable = max(1.0 - 1.0 / max(workers, 2), 0.5)
+        rows = 2.0 * overhead / max(row_cost * savable, 1e-12)
+        cut = int(min(max(rows, PARALLEL_FLOOR), 1 << 24))
+        probe = _mk_probe("parallel", cut)
+        _parallel_cutovers[key] = probe
+        return probe
+
+
+def parallel_scan_cutover(pool, workers: int) -> int:
+    """Cutover value of :func:`parallel_scan_probe`."""
+    return parallel_scan_probe(pool, workers).value
 
 
 # --------------------------------------------------------------------------- #
@@ -422,8 +468,8 @@ def host_row_cost() -> float:
 
 def note_disagreement(kind: str) -> int:
     """The cost model observed actuals persistently disagreeing (>3x) with
-    estimates seeded from this probe family (``"device"`` / ``"insitu"`` /
-    ``"member"`` / ``"rle"`` / ``"disk"``): drop the cached probe so the next
+    estimates seeded from this probe family (``"device"`` / ``"parallel"`` /
+    ``"insitu"`` / ``"member"`` / ``"rle"`` / ``"disk"``): drop the cached probe so the next
     consult re-measures, and decay the family's confidence.  Returns the disagreement count."""
     with _LOCK:
         n = _disagreements.get(kind, 0) + 1
@@ -439,6 +485,8 @@ def invalidate(kind: Optional[str] = None) -> None:
     with _LOCK:
         if kind in (None, "device"):
             _device_cutovers.clear()
+        if kind in (None, "parallel"):
+            _parallel_cutovers.clear()
         if kind in (None, "insitu"):
             _insitu_cutover = None
         if kind in (None, "member"):
@@ -457,6 +505,8 @@ def probe_info() -> Dict[str, object]:
     with _LOCK:
         out: Dict[str, object] = {
             "device": {k: p.as_dict() for k, p in _device_cutovers.items()},
+            "parallel": {str(k): p.as_dict()
+                         for k, p in _parallel_cutovers.items()},
             "insitu": (None if _insitu_cutover is None
                        else _insitu_cutover.as_dict()),
             "member": {k: p.as_dict() for k, p in _member_cutovers.items()},
@@ -475,6 +525,7 @@ def reset_for_tests() -> None:
     global _insitu_cutover, _disk_cutover, _host_row_cost
     with _LOCK:
         _device_cutovers.clear()
+        _parallel_cutovers.clear()
         _insitu_cutover = None
         _member_cutovers.clear()
         _rle_cutovers.clear()

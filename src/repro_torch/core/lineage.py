@@ -12,8 +12,8 @@
 
 Scans run on the device given to :class:`PredTrace` (the CUDA card unless
 the caller asks for the CPU) through the ``TorchBackend`` of
-``core/scan.py``.  The reference's worker-pool / mesh partition runtime is
-not part of this package yet: asking for it raises ``NotImplementedError``.
+``core/scan.py``; a worker pool or a mesh of torch devices runs them
+through ``core/distributed.py``'s ``PartitionExecutor``.
 """
 
 from __future__ import annotations
@@ -307,9 +307,9 @@ class PredTrace:
     same query with plan recording on and returns the cost-model
     :class:`~repro_torch.core.cost.PlanReport`.  Optional knobs: a compressed
     :class:`IntermediateStore` with a byte budget (per-table degradation to
-    the iterative/superset path), a disk tier for stages that miss it, and
-    fixed-size partitioning with zone-map pruning — answers are identical
-    under every configuration."""
+    the iterative/superset path), a disk tier for stages that miss it,
+    fixed-size partitioning with zone-map pruning, a worker pool, or a mesh
+    of torch devices — answers are identical under every configuration."""
 
     def __init__(
         self,
@@ -351,19 +351,22 @@ class PredTrace:
                 (``None`` = unlimited disk, ``0`` = tier disabled).
             num_partitions / partition_rows: fixed-size partition layout
                 with zone maps; lineage scans prune partitions first.
-            parallel / mesh: the partition runtime's worker pool and device
-                mesh; not supported yet (must be left unset).
+            parallel: fan surviving partitions over a thread pool
+                (``True`` = default size, int = worker count); scans the
+                device carries stay one kernel launch on the caller's thread.
+            mesh: sequence of torch devices (e.g. ``("cuda:0",)``; a device
+                may repeat) to shard every lineage scan over, one
+                ``TorchBackend`` launch per shard (``core/distributed.py``).
             device: torch device of the scans when ``scan_engine`` is
                 omitted — ``None`` is the CUDA card (raises without one),
                 ``"cpu"`` runs the kernel's plain PyTorch version.
         """
-        if parallel or mesh is not None:
-            raise NotImplementedError(
-                "parallel / mesh partition runtime is not ported yet")
         # partitioned table runtime: with ``num_partitions``/``partition_rows``
         # every source table (and every materialized stage) is split into
         # fixed-size row chunks carrying zone maps; lineage-query scans prune
-        # whole chunks before any row-level work.  Answers are identical
+        # whole chunks before any row-level work.  ``parallel`` fans the
+        # surviving chunks out across a worker pool; ``mesh`` runs them
+        # sharded over torch devices.  Answers are identical
         # with partitioning on or off.
         self.num_partitions = num_partitions
         self.partition_rows = partition_rows
@@ -395,8 +398,33 @@ class PredTrace:
         )
         self.budget_bytes = budget_bytes
         self.disk_budget_bytes = disk_budget_bytes
-        # one scan entry point for every query path
-        self._scan = self.scan_engine.scan
+        # one scan entry point for every query path: the engine directly, or
+        # a PartitionExecutor fanning surviving partitions over workers/mesh
+        self.partition_exec = None
+        if parallel or mesh is not None:
+            from .distributed import PartitionExecutor
+
+            # `parallel is True` (not ==): parallel=1 means one worker, and
+            # 1 == True would otherwise select the default-sized pool
+            workers = (None if parallel is True or parallel is None
+                       else int(parallel))
+            self.partition_exec = PartitionExecutor(
+                self.scan_engine, max_workers=workers, mesh=mesh
+            )
+            if (mesh is not None or getattr(self.scan_engine.backend,
+                                            "fused_carry_ok", None) is not None):
+                # mesh sharding / device-carry backends need the executor's
+                # own dispatch on every scan
+                self._scan = self.partition_exec.scan
+            else:
+                # worker fan-out only: scans stay on the engine's serial path
+                # and hand off to the executor *inside* _scan_pruned, only
+                # when surviving work clears the measured cutover — below it
+                # the parallel configuration is cost-identical to serial
+                self.scan_engine.fanout = self.partition_exec
+                self._scan = self.scan_engine.scan
+        else:
+            self._scan = self.scan_engine.scan
         self.mat_plan: Optional[MaterializationPlan] = None
         self.lineage_plan: Optional[LineagePlan] = None
         self.iter_plan: Optional[IterativePlan] = None
@@ -408,10 +436,13 @@ class PredTrace:
 
     # ------------------------------------------------------------------ #
     def close(self) -> None:
-        """Release — when this PredTrace created its own store — the store's
-        out-of-core spill root (a no-op otherwise).  Long-lived services that
-        build many PredTraces should call this, or use the instance as a
-        context manager."""
+        """Release the parallel partition executor's worker pool and — when
+        this PredTrace created its own store — the store's out-of-core spill
+        root (no-ops otherwise).  Long-lived services that build many
+        PredTraces should call this, or use the instance as a context
+        manager."""
+        if self.partition_exec is not None:
+            self.partition_exec.close()
         if self._owns_store and self.store is not None:
             self.store.close()
 
@@ -1100,7 +1131,7 @@ class PredTrace:
             "num_partitions": self.num_partitions,
             "partition_rows": self.partition_rows,
             "backend": type(self.scan_engine.backend).__name__,
-            "parallel": False,
+            "parallel": self.partition_exec is not None,
             "stages": (len(self.lineage_plan.stages)
                        if self.lineage_plan is not None else 0),
             "stages_dropped": len(mp.dropped) if mp is not None else 0,

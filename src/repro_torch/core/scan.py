@@ -533,6 +533,8 @@ class NumpyBackend:
     """Vectorized NumPy evaluation of a bound atom program (the oracle)."""
 
     name = "numpy"
+    # stateless scans: safe to run concurrently from partition workers
+    parallel_safe = True
 
     def scan(self, prog: AtomProgram, table: Table,
              binding: Dict[str, object]) -> np.ndarray:
@@ -877,6 +879,10 @@ class TorchBackend(NumpyBackend):
     # this backend records its own device-vs-host cost decision in scan();
     # the engine must not double-report a "serial" decision on top
     reports_cost = True
+    # the slab caches make concurrent scans racy, and pool threads never
+    # launch kernels; the parallel partition executor falls back to serial
+    # per-partition scans on this backend
+    parallel_safe = False
 
     def __init__(self, device=None, block_rows: int = 1024,
                  device_cutover: Optional[int] = None,
@@ -1946,6 +1952,39 @@ class TorchBackend(NumpyBackend):
                             np.asarray([thr], dtype=np.int32),
                             set_ops=set_ops)[0]
 
+    # ------------------------------------------------------------------ #
+    def fused_carry_ok(self, prog: AtomProgram, table: Table,
+                       binding: Dict[str, object],
+                       surviving_rows: Optional[int] = None) -> bool:
+        """Should the partition executor hand this scan to the fused kernel
+        (full-table launch, zone pruning in-kernel) instead of slicing
+        surviving partitions on the host?
+
+        Cost-model compare between the device launch, which reads only the
+        surviving zone blocks (the kernel prunes them in-kernel), and the
+        host pruned/serial scan over the surviving rows.  Without a cost
+        model the measured device cutover decides."""
+        if not prog.cmp_atoms:
+            return False
+        kernel_cmp, _ = self._split_cmp(prog, table, binding)
+        if not kernel_cmp:
+            return False
+        n = table.nrows
+        surv = n if surviving_rows is None else surviving_rows
+        if self._cost is None:
+            return self._use_device(surv, len(kernel_cmp), 1)
+        from .cost import prog_atoms
+
+        A = prog_atoms(prog)
+        pr = getattr(table, "part_rows", 0) or 0
+        est_dev = self._cost.estimate(
+            "device", float(surv) * len(kernel_cmp), **self._device_seed())
+        est_host = min(
+            self._cost.estimate("pruned", float(surv + pr) * A),
+            self._cost.estimate("serial", float(n) * A),
+        )
+        return est_dev < est_host
+
 
 # --------------------------------------------------------------------------- #
 # engine
@@ -2074,8 +2113,13 @@ class ScanEngine:
         # stats.compiles stays exact (one per distinct structure).  Reads
         # stay lock-free through the LRUCache's own lock.
         self._build_lock = threading.RLock()
+        # optional PartitionExecutor: when set, _scan_pruned hands scans
+        # whose surviving work clears the executor's measured cutover to its
+        # worker pool; below it, scans take the serial path untouched (the
+        # None test is the only cost a serial engine pays)
+        self.fanout = None
         # per-engine cost model: every dispatch heuristic in the scan stack
-        # (pruned-vs-full, device, in-situ-vs-decode) consults
+        # (pruned-vs-full, fan-out, device carry, in-situ-vs-decode) consults
         # it, and every executed choice is timed back into it (core/cost.py)
         from .cost import CostModel
 
@@ -2153,6 +2197,15 @@ class ScanEngine:
         self.stats.bump(prune_calls=1)
         return prog, prune_zone_maps(prog, table.zone_maps, binding)
 
+    def partition_plan(self, pred: Expr, table: Table,
+                       binding: Optional[Dict[str, object]] = None):
+        """``(prog, alive)`` when the partitioned path applies to this scan
+        (``alive`` marks partitions that may hold matches), else ``None``.
+        The parallel executor (``core/distributed.py``) uses this to fan
+        surviving partitions out across workers.  Callers that act on the
+        plan report what they actually skipped via :meth:`record_prune`."""
+        return self._partition_plan(self.compile(pred), table, binding or {})
+
     def record_prune(self, scanned: int, pruned: int) -> None:
         """Account partitions actually scanned vs actually skipped — recorded
         where the scan shape is decided, so a prune result that fell back to
@@ -2168,10 +2221,11 @@ class ScanEngine:
     def _scan_pruned(self, prog: AtomProgram, table: "PartitionedTable",
                      binding: Dict[str, object], plan) -> np.ndarray:
         """Scan shape for a zone-pruned partitioned table, chosen by the cost
-        model between two routes: ``serial`` (full vectorized scan — wins when
-        too little is skipped) and ``pruned`` (slice or gathered scan of the
+        model among three routes: ``serial`` (full vectorized scan — wins when
+        too little is skipped), ``pruned`` (slice or gathered scan of the
         surviving runs, charged one partition's floor plus the gather
-        penalty)."""
+        penalty), and ``parallel`` (pool fan-out via the attached executor,
+        seeded to cross over at the measured pool cutover)."""
         _, alive = plan
         n = table.nrows
         P = len(alive)
@@ -2183,18 +2237,31 @@ class ScanEngine:
         pr = table.part_rows
         bounds = [(p0 * pr, min(p1 * pr, n)) for p0, p1 in runs]
         scanned = sum(hi - lo for lo, hi in bounds)
-        from .cost import prog_atoms
+        from .cost import PARALLEL_CAL_ATOMS, prog_atoms
 
         A = prog_atoms(prog)
         cands = [("serial", float(n) * A),
                  ("pruned", float(scanned + pr) * A)]
+        ex, pool = self.fanout, None
+        if (ex is not None and len(bounds) > 1
+                and getattr(self.backend, "parallel_safe", False)):
+            pool = ex.pool()
+            if pool is not None:
+                cands.append((
+                    "parallel", float(scanned) * A,
+                    {"cutover": float(ex.min_parallel_rows) * PARALLEL_CAL_ATOMS,
+                     "ratio": ex.parallel_ratio()},
+                ))
         ns = int(np.count_nonzero(alive))
         ch = self.cost_model.choose(
             f"scan:{getattr(table, 'name', None) or '?'}", cands,
             meta={"rows": int(n), "atoms": int(A), "partitions": int(P),
                   "alive": ns, "rows_alive": int(scanned)})
         t0 = time.perf_counter()
-        if ch.route == "serial":
+        if ch.route == "parallel":
+            self.record_prune(ns, P - ns)
+            mask = ex.fanout_bounds(prog, table, binding, bounds, pool)
+        elif ch.route == "serial":
             # too little to skip: the vectorized full scan wins
             self.record_prune(P, 0)
             mask = self.backend.scan(prog, table, binding)

@@ -183,9 +183,12 @@ def test_entry_points_default_to_the_card(dbs, monkeypatch):
         PredTrace(port_db, plan)
     with pytest.raises(RuntimeError):
         catalog_from_numpy({"t": {"a": np.arange(3)}})
-    for kw in ({"parallel": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            PredTrace(port_db, plan, device="cpu", **kw)
+    # the partition runtime is ported: a pool and a CPU mesh build, and a
+    # mesh that names the card raises without one
+    for kw in ({"parallel": True}, {"mesh": ("cpu",) * 2}):
+        PredTrace(port_db, plan, device="cpu", **kw).close()
+    with pytest.raises(RuntimeError):
+        PredTrace(port_db, plan, device="cpu", mesh=("cuda:0",))
     # the disk tier is ported: a two-tier budget builds
     PredTrace(port_db, plan, device="cpu", store=True, budget_bytes=0,
               disk_budget_bytes=None).close()

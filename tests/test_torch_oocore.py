@@ -420,6 +420,43 @@ def test_disk_probe_env_override_and_measurement(monkeypatch):
         D.reset_for_tests()
 
 
+@pytest.mark.parametrize("atoms,route", [(1, "disk_insitu"),
+                                         (3, "device_insitu")])
+def test_measured_seeds_route_a_demoted_stage(monkeypatch, atoms, route):
+    """The card host's measured seeds (``cost.DISK_RATIO`` = 0.55 against
+    ``DEVICE_RATIO_CUDA`` = 0.022) decide a demoted stage's first scan:
+    with the device cutover at n rows x 1 atom and the disk cutover at 0,
+    the memmap compare wins while the work stays under 0.978 / (0.55 -
+    0.022) = 1.85 times the device cutover.  One atom (work = the cutover)
+    stays on the host; three atoms go to the card.  The reference's copied
+    seed, DISK_RATIO = 2.0, sent even one atom to the card."""
+    from repro_torch.core import cost
+
+    assert (cost.INSITU_RATIO, cost.MEMBER_RATIO, cost.RLE_RATIO,
+            cost.DISK_RATIO) == (0.51, 0.42, 0.45, 0.55)
+    n = 20_000
+    monkeypatch.setenv("PREDTRACE_DEVICE_CUTOVER", str(n))
+    monkeypatch.setenv("PREDTRACE_DISK_CUTOVER", "0")
+    PORT.dispatch.reset_for_tests()
+    t = scan_table(PORT, n)
+    store = PORT.store.IntermediateStore()
+    store.put(1, t)
+    store.demote(1)
+    E = PORT.expr
+    pred = E.land(*[E.Col(c) >= 3 for c in ("a", "c", "b")[:atoms]]) \
+        if atoms > 1 else E.Col("a") >= 3
+    eng = PORT.ScanEngine()
+    try:
+        got = store.scan(1, pred, {}, eng)
+        assert np.array_equal(got, eng.scan(pred, t, {}))
+        chosen = {"disk_insitu": eng.stats.disk_insitu_chosen,
+                  "device_insitu": eng.stats.device_chosen}
+        assert chosen == {k: int(k == route) for k in chosen}
+    finally:
+        store.close()
+        PORT.dispatch.reset_for_tests()
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
