@@ -94,8 +94,30 @@ Phases, each printing one JSON line:
                  Panda 5), then for q3 and q12 PredTrace's ``query(0)`` on
                  the card against each lazy baseline that supports the
                  query, every answer equal to the eager oracle.
+10. lm         — after phase 6, with the catalog freed and K5's launch
+                 count at 0: the LM serving path at full width and depth in
+                 bf16, weights from a seeded generator on the card.
+                 llama3.2-3b (28 layers): ``make_prefill_step`` at B = 1,
+                 S = 4,096, a warm-up and the median of 3 (host seconds to a
+                 synchronise, tokens/s, peak memory, the model FLOP rate
+                 over the bf16 peak, K5's share of prefill) and one call
+                 under ``torch.profiler`` (device time by kernel category,
+                 the idle share), each call launching K5 once a layer;
+                 every launch of the phase must come from a prefill call.
+                 The first and last layer's launches are replayed against
+                 the plain version afterwards (within ``attention_limit``
+                 and ``BF16_RMS_LIMIT``) and timed beside SDPA.  A
+                 1,024-token prompt through ``prefill`` and
+                 token by token through ``decode_step`` (plain attention)
+                 gives the same top-1 token, RMS(diff) / RMS(logits) <=
+                 5e-2.  ``launch/serve.py``'s main: 4 prompts of 128
+                 tokens, 32 generated each.  hymba-1.5b (32 layers, window
+                 2,048): prefill at S = 4,096 (its launches kept and
+                 replayed the same way), timed once after a warm-up, and
+                 at S = 512.
 
-Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
+Then a ``{"kernels": [...]}`` line (K5's launches and time are phase
+10's), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
 script refuses to run without a CUDA device.  It imports neither ``jax`` nor
 the reference package.
@@ -1568,7 +1590,7 @@ def check_entry_outputs(inp, out) -> None:
 
 
 def case_record(label, got, want, ms, plain_ms, nbytes, nops, ops_per_s,
-                library_ms=None, **extra):
+                library_ms=None, phase="entry_kernel", **extra):
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = nops / ops_per_s * 1e3
     err = float((got.float() - want.float()).abs().max().item())
@@ -1577,7 +1599,7 @@ def case_record(label, got, want, ms, plain_ms, nbytes, nops, ops_per_s,
                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                else "operations", bound_bytes=int(nbytes), bound_ops=int(nops),
                library_ms=library_ms, **extra)
-    emit({"phase": "entry_kernel", **rec})
+    emit({"phase": phase, **rec})
     return rec
 
 
@@ -1723,6 +1745,355 @@ def phase_entry_kernels(inp, secs) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 10: the LM serving path
+# --------------------------------------------------------------------------- #
+# the prefill shapes: B = 1, S = 4,096 (the repo's train_4k length); hymba's
+# per-step mamba loop is also timed at S = 512
+LM_PREFILL_S = 4096
+HYMBA_TIMED_S = 512
+DECODE_CHECK_S = 1024  # prompt of the prefill-against-decode check
+# RMS(decode - prefill) / RMS(prefill) of the last logits: the relative
+# tolerance of the reference's tests/test_models_smoke.py::
+# test_decode_matches_prefill_logits
+DECODE_RMS_LIMIT = 5e-2
+LM_SERVE_ARGS = ["--arch", "llama3.2-3b", "--batch", "4", "--prompt-len",
+                 "128", "--gen", "32"]
+
+
+def keep_k5_calls(indices) -> tuple:
+    """Wrap K5's wrapper as ``mha_flash`` calls it so the calls numbered
+    ``indices`` (from 0, counted from now) keep their operands and output.
+    Returns (kept {index: (q, k, v, window, out)}, undo)."""
+    from repro_torch.kernels.flash_attn import ops
+
+    real = ops.flash_attention
+    kept, count = {}, [0]
+
+    def wrapper(q, k, v, window=None, **kw):
+        out = real(q, k, v, window=window, **kw)
+        if count[0] in indices:
+            kept[count[0]] = (q, k, v, window, out)
+        count[0] += 1
+        return out
+
+    ops.flash_attention = wrapper
+    return kept, lambda: setattr(ops, "flash_attention", real)
+
+
+def k5_launches() -> int:
+    from repro_torch.kernels.flash_attn import LAUNCHES
+
+    return LAUNCHES["flash_attention"]
+
+
+def timed_prefill(step, model, batch) -> tuple:
+    """One prefill call: (logits, host seconds to the synchronise, K5
+    launches)."""
+    torch.cuda.synchronize()
+    before = k5_launches()
+    t0 = time.perf_counter()
+    logits = step(model, batch)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, k5_launches() - before
+
+
+def replay_k5(name, layer, kept, smi) -> dict:
+    """One kept K5 launch of the model path against its plain version:
+    within ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
+    elements; kernel, plain and SDPA times on the same operands."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_ref,
+                                                flash_attention, rms_ratio)
+
+    q, k, v, window, got = kept
+    want = attention_ref(q, k, v, window=window)
+    share, share_median = limit_share(got, want, q, k, v, window, median=True)
+    rms = rms_ratio(got, want)
+    if share > 1 or rms > BF16_RMS_LIMIT:
+        raise AssertionError(f"K5 {name} layer {layer}: {share:.3f} of the "
+                             f"limit, RMS ratio {rms:.3g}")
+    bh, s, d = q.shape
+    q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
+    if window is None:
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    else:
+        pos = torch.arange(s, device="cuda")
+        keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+
+    rec = case_record(
+        f"K5 {name} prefill layer {layer}: BH={bh} S={s} D={d} window={window}",
+        got, want,
+        time_ms(lambda: flash_attention(q, k, v, window=window), reps=10,
+                inner=2),
+        time_ms(lambda: attention_ref(q, k, v, window=window), reps=5, inner=1),
+        nbytes=4 * bh * s * d * q.element_size(),
+        nops=4 * bh * d * attention_pairs(s, window),
+        ops_per_s=BF16_FLOPS_PER_S,
+        library_ms=time_ms(sdpa, reps=10, inner=2), phase="lm_kernel",
+        model=name, layer=layer, share_of_limit=share,
+        share_of_limit_median=share_median, rms_ratio=rms,
+        rms_limit=BF16_RMS_LIMIT, nvidia_smi=smi)
+    del want
+    torch.cuda.empty_cache()
+    return rec
+
+
+# kernel-name categories of the prefill profile, first match wins
+PROFILE_CATEGORIES = (("k5", ("flash_attention",)),
+                      ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas",
+                                "sm90")),
+                      ("elementwise", ("elementwise",)),
+                      ("reduce", ("reduce",)))
+
+
+def profile_prefill(step, model, batch, host_s: float) -> dict:
+    """Device time of one prefill call by kernel (``torch.profiler``, CUPTI):
+    the total per category of kernel name, the largest kernels, and the
+    busy share of the host-clock median ``host_s`` of unprofiled calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(model, batch)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    by_name, by_cat = {}, {}
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + (b - a) * 1e-6)
+        cat = next((c for c, keys in PROFILE_CATEGORIES
+                    if any(k in name.lower() for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + (b - a) * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"device_kernels": len(spans), "device_busy_s": busy * 1e-6,
+            "idle_share_of_host_median": 1 - busy * 1e-6 / host_s,
+            "device_s_by_category": by_cat,
+            "top_kernels": [[name[:90], n, t] for name, (n, t) in top]}
+
+
+def prefill_flops(model, s: int) -> int:
+    """2 x non-embedding parameters x tokens + 2 x the causal attention
+    products (QK^T and PV, 2 H D multiply-adds per unmasked pair) of every
+    layer."""
+    cfg = model.cfg
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name not in ("embed", "lm_head"))
+    pairs = attention_pairs(s, cfg.sliding_window)
+    return 2 * n * s + 2 * cfg.n_layers * 2 * cfg.n_heads * cfg.hd * pairs
+
+
+def lm_model(name: str, smi: str):
+    """``Model.init`` of the full configuration in bf16 on the card, seed 0."""
+    from repro_torch.configs import get
+    from repro_torch.models.model import Model
+
+    cfg = get(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "lm_init", "model": name, "seconds": time.perf_counter() - t0,
+          "params": params, "param_bytes": 2 * params, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "window": cfg.sliding_window, "padded_vocab": cfg.padded_vocab,
+          "nvidia_smi": smi})
+    return model
+
+
+def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None,
+               profiled: bool = False) -> tuple:
+    """Prefill B = 1 at ``s`` tokens: one warm-up call whose first and last
+    layer's K5 launches are kept for the replay, then ``reps`` timed calls
+    (and with ``profiled`` one more under the profiler), each launching K5
+    once a layer.  Returns (record, {layer: kept launch})."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    step = make_prefill_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, s), generator=gen,
+                                     device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    kept, undo = keep_k5_calls({0, L - 1})
+    try:
+        logits, warm_s, warm_launches = timed_prefill(step, model, batch)
+    finally:
+        undo()
+    runs = [timed_prefill(step, model, batch) for _ in range(reps)]
+    launches = [warm_launches] + [n for _, _, n in runs]
+    for out in [logits] + [lg for lg, _, _ in runs]:
+        if out.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(
+                out[..., :cfg.vocab].float()).all():
+            raise AssertionError(f"{cfg.name} prefill: bad logits")
+    secs = [t for _, t, _ in runs]
+    med = statistics.median(secs)
+    flops = prefill_flops(model, s)
+    rec = {"phase": "lm_prefill", "model": cfg.name, "B": 1, "S": s,
+           "warmup_s": warm_s, "seconds": secs, "seconds_median": med,
+           "tokens_per_s": s / med,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_flops": flops,
+           "flops_formula": "2 x non-embedding params x tokens + 2 x 2 H D "
+                            "x unmasked (query, key) pairs x layers",
+           "flop_rate": flops / med, "share_of_bf16_peak":
+           flops / med / BF16_FLOPS_PER_S, "nvidia_smi": smi}
+    if k5_ms is not None:
+        rec.update(k5_ms_phase6=k5_ms, k5_share_of_prefill=L * k5_ms * 1e-3 / med,
+                   k5_share_formula="layers x phase 6's K5 ms at this shape "
+                                    "/ prefill median")
+    if profiled:
+        before = k5_launches()
+        rec["profile"] = profile_prefill(step, model, batch, med)
+        launches.append(k5_launches() - before)
+    rec["k5_launches_per_call"] = launches
+    emit(rec)
+    if any(n != L for n in launches):
+        raise AssertionError(f"{cfg.name} prefill: K5 launches {launches}, "
+                             f"want {L} a call")
+    return rec, kept
+
+
+def lm_decode_vs_prefill(model, smi: str) -> dict:
+    """One prompt through ``prefill`` (K5) and token by token through
+    ``decode_step`` (plain attention over the cache): the last position's
+    logits must give the same top-1 token, RMS ratio within
+    ``DECODE_RMS_LIMIT``."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg, s = model.cfg, DECODE_CHECK_S
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab, (1, s), generator=gen, device="cuda")
+    before = k5_launches()
+    full = make_prefill_step(cfg)(model, {"tokens": prompt})
+    prefill_launches = k5_launches() - before
+    step = make_decode_step(cfg)
+    state = model.init_decode_state(1, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(s):
+        logits, state = step(model, state, prompt[:, i:i + 1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    a = full[0, -1, :cfg.vocab].float()
+    b = logits[0, -1, :cfg.vocab].float()
+    ratio = float((b - a).square().mean().sqrt() / a.square().mean().sqrt())
+    rec = {"phase": "lm_decode_vs_prefill", "model": cfg.name, "prompt": s,
+           "top1_prefill": int(a.argmax()), "top1_decode": int(b.argmax()),
+           "rms_ratio": ratio, "rms_limit": DECODE_RMS_LIMIT,
+           "decode_seconds": secs, "decode_tokens_per_s": s / secs,
+           "k5_launches_prefill": prefill_launches, "nvidia_smi": smi}
+    emit(rec)
+    if prefill_launches != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {prefill_launches} K5 launches")
+    if rec["top1_prefill"] != rec["top1_decode"] or ratio > DECODE_RMS_LIMIT:
+        raise AssertionError(f"{cfg.name}: decode and prefill disagree: {rec}")
+    del state
+    return rec
+
+
+def lm_serve(smi: str) -> dict:
+    """``launch/serve.py``'s main on the card: llama3.2-3b, 4 prompts of
+    128 tokens through decode steps, then 32 greedy tokens each."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        gen = serve.main(LM_SERVE_ARGS)
+    secs = time.perf_counter() - t0
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        print(line, flush=True)
+    if gen.shape != (4, 32) or not ((gen >= 0) & (gen < get("llama3.2-3b").vocab)).all():
+        raise AssertionError(f"serve returned {gen.shape} tokens")
+    m = re.search(r"prefill (\d+) toks in ([\d.]+)s, decode (\d+) toks in "
+                  r"([\d.]+)s \(([\d.]+) tok/s", printed[0])
+    rec = {"phase": "lm_serve", "args": LM_SERVE_ARGS, "tokens_shape":
+           list(gen.shape), "prefill_s": float(m[2]), "decode_s": float(m[4]),
+           "decode_tokens_per_s": float(m[5]), "seconds": secs,
+           "printed": printed, "nvidia_smi": smi}
+    emit(rec)
+    return rec
+
+
+def free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm(smi: str, k5_entry_recs) -> dict:
+    """Phase 10: llama3.2-3b and hymba-1.5b at full width and depth in bf16
+    through the port's serving entry points, K5's launch count at 0 just
+    before and read just after; then the kept launches against the plain
+    version (not counted).  Returns the launches and replay records."""
+    from repro_torch.kernels import flash_attn
+
+    t_phase = time.perf_counter()
+    llama_ms = next(r["ms"] for r in k5_entry_recs
+                    if "llama3.2-3b bfloat16" in r["case"])
+    flash_attn.reset_launches()
+    model = lm_model("llama3.2-3b", smi)
+    llama, kept_llama = lm_prefill(model, LM_PREFILL_S, smi, reps=3,
+                                   k5_ms=llama_ms, profiled=True)
+    check = lm_decode_vs_prefill(model, smi)
+    del model
+    free_card()
+    lm_serve(smi)
+    free_card()
+    t0 = time.perf_counter()
+    model = lm_model("hymba-1.5b", smi)
+    hymba, kept_hymba = lm_prefill(model, LM_PREFILL_S, smi, reps=1)
+    short, _ = lm_prefill(model, HYMBA_TIMED_S, smi, reps=1, profiled=True)
+    emit({"phase": "lm_hymba_total", "seconds": time.perf_counter() - t0})
+    del model
+    free_card()
+    launches = k5_launches()
+    prefills = [llama, hymba, short]
+    counted = (sum(sum(r["k5_launches_per_call"]) for r in prefills)
+               + check["k5_launches_prefill"])
+    emit({"phase": "lm_launches", "k5_launches": launches,
+          "k5_launches_of_prefill_calls": counted})
+    if launches != counted:
+        raise AssertionError(f"K5 launched {launches} times in phase 10, its "
+                             f"prefill calls account for {counted}")
+    replays = []
+    for rec, kept in ((llama, kept_llama), (hymba, kept_hymba)):
+        mine = [replay_k5(rec["model"], i, kept[i], smi) for i in sorted(kept)]
+        emit({"phase": "lm_k5_share", "model": rec["model"], "S": rec["S"],
+              "k5_share_of_prefill_replayed":
+              rec["k5_launches_per_call"][0] * statistics.mean(
+                  r["ms"] for r in mine) * 1e-3 / rec["seconds_median"]})
+        replays += mine
+        kept.clear()
+    free_card()
+    emit({"phase": "lm_total", "seconds": time.perf_counter() - t_phase,
+          "k5_launches": launches})
+    return {"launches": launches, "replays": replays,
+            "per_prefill": {r["model"]: r["k5_launches_per_call"][0]
+                            for r in (llama, hymba)}}
+
+
+# --------------------------------------------------------------------------- #
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
@@ -1770,6 +2141,9 @@ def main() -> None:
     del out
     recs = phase_entry_kernels(inp, secs)
     emit({"phase": "entry_points_total", "seconds": time.perf_counter() - t6})
+    del inp
+    free_card()
+    lm = phase_lm(smi, recs["flash_attention"])
     if any(m in sys.modules for m in ("jax", "repro")):
         raise AssertionError("jax or the reference package was imported")
 
@@ -1782,6 +2156,23 @@ def main() -> None:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"]}
+
+    def k5_entry(lm, entry_recs, entry_launches, source):
+        """K5 on the LM path (phase 10): its launches there, its time at the
+        first replayed llama3.2-3b layer; phase 6's cases beside."""
+        r = lm["replays"][0]
+        return {"name": "flash_attention (K5)", "route": "cuda",
+                "source": source, "replaces": REPLACES["flash_attention"],
+                "launches": int(lm["launches"]),
+                "launches_per_prefill": lm["per_prefill"],
+                "entry_launches": int(entry_launches["flash_attention"]),
+                "max_abs_err": max(x["max_abs_err"]
+                                   for x in [*lm["replays"], *entry_recs]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": r["case"],
+                "model_path_ms": {x["case"]: x["ms"] for x in lm["replays"]},
+                "entry_ms": {x["case"]: x["ms"] for x in entry_recs}}
 
     def largest(recs):  # the main path's call with the most K x N
         return max(range(len(recs)), key=lambda i: recs[i]["k"] * recs[i]["n"])
@@ -1799,9 +2190,8 @@ def main() -> None:
               entry_launches, f"{kdir}/membership/csrc/membership.cu",
               pick=next(i for i, r in enumerate(recs["membership"])
                         if "q3 orders" in r["case"])),
-        entry("flash_attention (K5)", recs["flash_attention"],
-              "flash_attention", entry_launches,
-              f"{kdir}/flash_attn/csrc/flash_attn.cu"),
+        k5_entry(lm, recs["flash_attention"], entry_launches,
+                 f"{kdir}/flash_attn/csrc/flash_attn.cu"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

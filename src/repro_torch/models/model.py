@@ -1,0 +1,344 @@
+"""Model assembly: init, loss, prefill and decode for every family (dense,
+MoE, hybrid attention + SSM, xLSTM, encoder-decoder, VLM stub).
+
+:class:`Model` holds the weights under the reference's names: a layer's
+weight ``layers.<i>.attn.wq`` is row ``i`` of the reference's stacked
+``params["layers"]["attn"]["wq"]`` (:func:`params_from_numpy` carries a
+reference tree across).  Layers are a ``ModuleList`` run in a Python loop.
+The decode cache is written in place.  Everything runs on the CUDA card
+unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers as L
+from . import ssm as S
+from .config import ArchConfig
+
+
+def _dt(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; the CPU only when the caller asks for it.
+    Raises when a CUDA device is asked for and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch models run on a CUDA device by default "
+                           "and none is available; pass device='cpu'")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _is_slstm(cfg: ArchConfig, i: int) -> bool:
+    return i % cfg.slstm_every == cfg.slstm_every - 1
+
+
+def cache_size(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+# --------------------------------------------------------------------------- #
+# modules
+# --------------------------------------------------------------------------- #
+
+
+class Block(nn.Module):
+    """One decoder block (``cross``: the encoder-decoder's cross attention)."""
+
+    def __init__(self, cfg: ArchConfig, cross: bool = False, **kw):
+        super().__init__()
+        self.norm1 = L.param((cfg.d_model,), **kw)
+        self.attn = L.Attention(cfg, **kw)
+        if cfg.parallel_ssm:
+            self.ssm = S.Mamba(cfg, **kw)
+        if cfg.d_ff > 0:
+            self.norm2 = L.param((cfg.d_model,), **kw)
+            self.ffn = L.MoE(cfg, **kw) if cfg.moe is not None else L.SwiGLU(cfg, **kw)
+        if cross:
+            self.cross = L.Attention(cfg, **kw)
+            self.norm_cross = L.param((cfg.d_model,), **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        for name in ("norm1", "norm2", "norm_cross"):
+            if hasattr(self, name):
+                getattr(self, name).fill_(1.0)
+
+    def forward(self, x, cfg: ArchConfig, causal: bool = True):
+        h = L.rmsnorm(x, self.norm1, cfg.norm_eps)
+        att = L.attention(self.attn, h, cfg, causal=causal)
+        if cfg.parallel_ssm:
+            att = 0.5 * (att + S.mamba_forward(self.ssm, h, cfg))  # hymba
+        return self._ffn(x + att, cfg)
+
+    def forward_decdec(self, x, enc_out, cfg: ArchConfig):
+        h = x + L.attention(self.attn, L.rmsnorm(x, self.norm1, cfg.norm_eps),
+                            cfg, causal=True)
+        hc = L.rmsnorm(h, self.norm_cross, cfg.norm_eps)
+        return self._ffn(h + L.cross_attention(self.cross, hc, enc_out, cfg), cfg)
+
+    def _ffn(self, x, cfg: ArchConfig):
+        if cfg.d_ff == 0:
+            return x
+        h2 = L.rmsnorm(x, self.norm2, cfg.norm_eps)
+        if cfg.moe is not None:
+            return x + L.moe_ffn(self.ffn, h2, cfg)
+        return x + L.swiglu(self.ffn, h2)
+
+
+class XLSTMBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, slstm: bool, **kw):
+        super().__init__()
+        self.norm1 = L.param((cfg.d_model,), **kw)
+        if slstm:
+            self.kind_slstm = S.SLSTM(cfg, **kw)
+        else:
+            self.kind_mlstm = S.MLSTM(cfg, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        self.norm1.fill_(1.0)
+
+    def forward(self, x, cfg: ArchConfig):
+        h = L.rmsnorm(x, self.norm1, cfg.norm_eps)
+        if hasattr(self, "kind_slstm"):
+            return x + S.slstm_forward(self.kind_slstm, h, cfg)
+        return x + S.mlstm_forward(self.kind_mlstm, h, cfg)
+
+    def decode(self, x, state, cfg: ArchConfig):
+        h = L.rmsnorm(x, self.norm1, cfg.norm_eps)
+        if hasattr(self, "kind_slstm"):
+            y, state = S.slstm_decode(self.kind_slstm, h, state, cfg)
+        else:
+            y, state = S.mlstm_decode(self.kind_mlstm, h, state, cfg)
+        return x + y, state
+
+
+class Model(nn.Module):
+    """The weights of one architecture and its forward passes.
+
+    ``Model(cfg, device, dtype)`` allocates uninitialised weights of
+    ``dtype`` (the reference keeps float32 master weights; its serving
+    program casts them to bf16); :meth:`init` draws them, and
+    :func:`params_from_numpy` loads a reference tree.  Activations run in
+    ``cfg.dtype``."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        kw = dict(device=dev, dtype=dtype)
+        V, d = cfg.padded_vocab, cfg.d_model
+        self.embed = L.param((V, d), **kw)
+        self.final_norm = L.param((d,), **kw)
+        self.lm_head = L.param((d, V), **kw)
+        n = cfg.n_layers
+        if cfg.xlstm:
+            self.blocks = nn.ModuleList(
+                XLSTMBlock(cfg, _is_slstm(cfg, i), **kw) for i in range(n))
+        elif cfg.encdec:
+            self.encoder = nn.ModuleList(Block(cfg, **kw) for _ in range(n))
+            self.decoder = nn.ModuleList(Block(cfg, cross=True, **kw)
+                                         for _ in range(n))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, **kw) for _ in range(n))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @classmethod
+    @torch.no_grad()
+    def init(cls, cfg: ArchConfig, seed: int = 0, device=None,
+             dtype=torch.float32) -> "Model":
+        """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+        the target device: ``N(0, 1) / sqrt(fan_in)`` drawn in float32 and
+        cast to ``dtype`` one tensor at a time; norms 1, biases 0; the SSM
+        blocks' own constants as in the reference."""
+        model = cls(cfg, device, dtype)
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        for mod in model.modules():  # each fills its own weights
+            if hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(gen, cfg)
+        return model
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        L.dense_init_(self.embed, gen, cfg.d_model)
+        L.dense_init_(self.lm_head, gen, cfg.d_model)
+        self.final_norm.fill_(1.0)
+
+    # ---- forward pieces ---------------------------------------------------- #
+
+    def _embed(self, tokens):
+        return F.embedding(tokens, self.embed).to(_dt(self.cfg))
+
+    def _inputs_to_hidden(self, batch: Mapping[str, torch.Tensor]):
+        """Map (modality-stubbed) inputs to the initial hidden sequence."""
+        x = self._embed(batch["tokens"])
+        if self.cfg.frontend == "vision":
+            return torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
+
+    def _logits(self, x):
+        cfg = self.cfg
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        logits = x @ self.lm_head.to(x.dtype)
+        if cfg.padded_vocab != cfg.vocab:  # mask the padded tail
+            logits[..., cfg.vocab:] = -1e30
+        return logits
+
+    def _hidden(self, batch: Mapping[str, torch.Tensor]):
+        """The last hidden sequence of every family."""
+        cfg = self.cfg
+        if cfg.encdec:
+            enc = batch["frames"].to(_dt(cfg))
+            for blk in self.encoder:
+                enc = blk(enc, cfg, causal=False)
+            x = self._embed(batch["tokens"])
+            for blk in self.decoder:
+                x = blk.forward_decdec(x, enc, cfg)
+            return x
+        x = self._inputs_to_hidden(batch)
+        for blk in (self.blocks if cfg.xlstm else self.layers):
+            x = blk(x, cfg)
+        return x
+
+    # ---- public API: loss / prefill / decode -------------------------------- #
+
+    @torch.no_grad()
+    def loss_fn(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Next-token LM loss (the forward value).  batch: tokens [B, S]
+        (+ patches / frames for the stubs), labels [B, S_text]."""
+        cfg = self.cfg
+        logits = self._logits(self._hidden(batch))
+        if cfg.encdec:
+            return _xent(logits[:, :-1], batch["tokens"][:, 1:])
+        if cfg.frontend == "vision":
+            # loss only over text positions (after the patch prefix)
+            logits = logits[:, cfg.n_patches:, :]
+        return _xent(logits[:, :-1], batch["labels"][:, 1:])
+
+    @torch.no_grad()
+    def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Forward over a prompt, returning last-position logits [B, 1, V]."""
+        return self._logits(self._hidden(batch)[:, -1:, :])
+
+    def init_decode_state(self, batch: int, seq_len: int) -> Dict[str, Any]:
+        """The decode cache: zeros, ``kv_pos`` -1 (empty), ``pos`` 0."""
+        cfg, dev = self.cfg, self.device
+        Sc = cache_size(cfg, seq_len)
+        state: Dict[str, Any] = {
+            "pos": 0,
+            "kv_pos": torch.full((Sc,), -1, dtype=torch.int32, device=dev)}
+        if cfg.xlstm:
+            state["blocks"] = [
+                S.slstm_state(cfg, batch, dev) if _is_slstm(cfg, i)
+                else S.mlstm_state(cfg, batch, dev)
+                for i in range(cfg.n_layers)]
+            return state
+        kshape = (cfg.n_layers, batch, Sc, cfg.n_kv_heads, cfg.hd)
+        state["cache_k"] = torch.zeros(kshape, dtype=_dt(cfg), device=dev)
+        state["cache_v"] = torch.zeros(kshape, dtype=_dt(cfg), device=dev)
+        if cfg.parallel_ssm:
+            d_in = cfg.ssm.expand * cfg.d_model
+            state["ssm"] = torch.zeros((cfg.n_layers, batch, d_in,
+                                        cfg.ssm.state_dim),
+                                       dtype=torch.float32, device=dev)
+        if cfg.encdec:
+            state["enc_out"] = torch.zeros((batch, seq_len, cfg.d_model),
+                                           dtype=_dt(cfg), device=dev)
+        return state
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict[str, Any], tokens):
+        """One decode step for the whole batch; tokens [B, 1].  Writes the
+        cache in place and returns (logits [B, 1, V], state)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        pos = state["pos"]
+        if cfg.xlstm:
+            for i, blk in enumerate(self.blocks):
+                x, state["blocks"][i] = blk.decode(x, state["blocks"][i], cfg)
+            state["pos"] = pos + 1
+            return self._logits(x), state
+
+        slot = pos % state["kv_pos"].shape[0]
+        state["kv_pos"][slot] = pos
+        stack = self.decoder if cfg.encdec else self.layers
+        for i, blk in enumerate(stack):
+            hn = L.rmsnorm(x, blk.norm1, cfg.norm_eps)
+            att = L.attention_decode(blk.attn, hn, state["cache_k"][i],
+                                     state["cache_v"][i], state["kv_pos"],
+                                     slot, pos, cfg)
+            if cfg.parallel_ssm:
+                y, state["ssm"][i] = S.mamba_decode(blk.ssm, hn,
+                                                    state["ssm"][i], cfg)
+                att = 0.5 * (att + y)
+            x = x + att
+            if cfg.encdec:
+                hc = L.rmsnorm(x, blk.norm_cross, cfg.norm_eps)
+                x = x + L.cross_attention(blk.cross, hc, state["enc_out"], cfg)
+            x = blk._ffn(x, cfg)
+        state["pos"] = pos + 1
+        return self._logits(x), state
+
+
+def _xent(logits, labels):
+    """Stable cross-entropy in float32; mean over positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+# --------------------------------------------------------------------------- #
+# weights carried across from the reference
+# --------------------------------------------------------------------------- #
+
+
+def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray],
+             layer: Optional[int] = None) -> None:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}{k}.", out, layer)
+        else:
+            a = np.asarray(v)
+            out[f"{prefix}{k}"] = a if layer is None else a[layer]
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Mapping, device=None) -> Model:
+    """A :class:`Model` holding the reference's ``M.init(cfg, key)[0]``,
+    given as a nested dict of numpy arrays: the stacked ``[L, ...]`` leaves
+    of ``layers``, ``encoder`` and ``decoder`` are split per layer, the
+    xLSTM ``blocks`` list taken block by block.  The weights keep the
+    arrays' dtype."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key in ("layers", "encoder", "decoder"):
+            for i in range(cfg.n_layers):
+                _flatten(sub, f"{key}.{i}.", flat, layer=i)
+        elif key == "blocks":
+            for i, blk in enumerate(sub):
+                _flatten(blk, f"blocks.{i}.", flat)
+        else:
+            flat[key] = np.asarray(sub)
+    dtypes = {a.dtype for a in flat.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"the tree mixes dtypes {sorted(map(str, dtypes))}")
+    state = {k: torch.tensor(a) for k, a in flat.items()}
+    model = Model(cfg, device, next(iter(state.values())).dtype)
+    model.load_state_dict(state, strict=True)
+    return model
