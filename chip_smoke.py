@@ -115,9 +115,35 @@ Phases, each printing one JSON line:
                  2,048): prefill at S = 4,096 (its launches kept and
                  replayed the same way), timed once after a warm-up, and
                  at S = 512.
+11. train      — after phase 10, with its models freed and every launch
+                 count at 0: the training path at full width and depth.
+                 qwen2-0.5b (``launch/train``'s default arch, 24 layers,
+                 633 M parameters: bf16 matrices, float32 norms and qkv
+                 biases), weights from a seeded generator on the card;
+                 batches from ``LineageDataPipeline`` over 2,000 synthetic
+                 documents, built and traced on the card with the cutovers
+                 forced to 0 (``lineage_of`` the first document of step 0
+                 identical to the numpy backend; its K1/K2 launches
+                 replayed against the plain version).  ``make_train_step``
+                 with remat, B = 8 at S = 4,096 in 4 microbatches of 2: a
+                 warm-up step and 5 timed ones (median seconds, tokens/s,
+                 peak memory, the model FLOP rate over the bf16 peak, every
+                 loss finite), K5 192 launches a step (forward and remat
+                 recompute, 24 layers, 4 microbatches).  A checkpoint
+                 after step 3 restored into a fresh model and AdamW state
+                 bit-identical, whose step 4 (under ``torch.profiler``)
+                 gives the uninterrupted loss within 1e-3.  One
+                 microbatch's gradients through K5's autograd node against
+                 the plain attention under autograd: every parameter within
+                 RMS ratio 5e-2, non-zero q/k/v gradients.
+                 ``launch/train.py``'s main: 6 steps of batch 4 at S = 512,
+                 a checkpoint after the sixth.  Then the warm-up step's first K5
+                 launch against the plain version, timed beside SDPA, with
+                 the plain backward's time.  ``--only-train`` runs
+                 phases 1, 2 and 11 alone.
 
-Then a ``{"kernels": [...]}`` line (K5's launches and time are phase
-10's), the raw ``nvidia-smi`` line, and the
+Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5 and
+11's, K5's phases 10 and 11's), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
 script refuses to run without a CUDA device.  It imports neither ``jax`` nor
 the reference package.
@@ -1771,8 +1797,9 @@ def keep_k5_calls(indices) -> tuple:
 
     def wrapper(q, k, v, window=None, **kw):
         out = real(q, k, v, window=window, **kw)
-        if count[0] in indices:
-            kept[count[0]] = (q, k, v, window, out)
+        if count[0] in indices:  # a train step's operands carry autograd
+            kept[count[0]] = (q.detach(), k.detach(), v.detach(), window,
+                              out.detach())
         count[0] += 1
         return out
 
@@ -1797,7 +1824,8 @@ def timed_prefill(step, model, batch) -> tuple:
     return logits, time.perf_counter() - t0, k5_launches() - before
 
 
-def replay_k5(name, layer, kept, smi) -> dict:
+def replay_k5(name, layer, kept, smi, path: str = "prefill",
+              phase: str = "lm_kernel", **extra) -> dict:
     """One kept K5 launch of the model path against its plain version:
     within ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
     elements; kernel, plain and SDPA times on the same operands."""
@@ -1826,7 +1854,7 @@ def replay_k5(name, layer, kept, smi) -> dict:
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
 
     rec = case_record(
-        f"K5 {name} prefill layer {layer}: BH={bh} S={s} D={d} window={window}",
+        f"K5 {name} {path} layer {layer}: BH={bh} S={s} D={d} window={window}",
         got, want,
         time_ms(lambda: flash_attention(q, k, v, window=window), reps=10,
                 inner=2),
@@ -1834,10 +1862,10 @@ def replay_k5(name, layer, kept, smi) -> dict:
         nbytes=4 * bh * s * d * q.element_size(),
         nops=4 * bh * d * attention_pairs(s, window),
         ops_per_s=BF16_FLOPS_PER_S,
-        library_ms=time_ms(sdpa, reps=10, inner=2), phase="lm_kernel",
+        library_ms=time_ms(sdpa, reps=10, inner=2), phase=phase,
         model=name, layer=layer, share_of_limit=share,
         share_of_limit_median=share_median, rms_ratio=rms,
-        rms_limit=BF16_RMS_LIMIT, nvidia_smi=smi)
+        rms_limit=BF16_RMS_LIMIT, nvidia_smi=smi, **extra)
     del want
     torch.cuda.empty_cache()
     return rec
@@ -1851,19 +1879,22 @@ PROFILE_CATEGORIES = (("k5", ("flash_attention",)),
                       ("reduce", ("reduce",)))
 
 
-def profile_prefill(step, model, batch, host_s: float) -> dict:
-    """Device time of one prefill call by kernel (``torch.profiler``, CUPTI):
-    the total per category of kernel name, the largest kernels, and the
-    busy share of the host-clock median ``host_s`` of unprofiled calls."""
+def profile_device(call, host_s: float) -> dict:
+    """Device time of one ``call()`` by kernel (``torch.profiler``, CUPTI,
+    device activity only): the total per category of kernel name, the
+    largest kernels, and the busy share of the host-clock median ``host_s``
+    of unprofiled calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(model, batch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device kernel")
     busy, end = 0.0, float("-inf")
     by_name, by_cat = {}, {}
     for a, b, name in spans:
@@ -1956,7 +1987,7 @@ def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None,
                                     "/ prefill median")
     if profiled:
         before = k5_launches()
-        rec["profile"] = profile_prefill(step, model, batch, med)
+        rec["profile"] = profile_device(lambda: step(model, batch), med)
         launches.append(k5_launches() - before)
     rec["k5_launches_per_call"] = launches
     emit(rec)
@@ -2094,10 +2125,420 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 11: the training path
+# --------------------------------------------------------------------------- #
+# qwen2-0.5b at full width and depth (launch/train's default arch), the
+# train_4k sequence length, B = 8 in 4 microbatches of 2, remat on
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 4096, 4
+TRAIN_TIMED = 5  # after one warm-up step
+TRAIN_DOCS = 2000
+TRAIN_CKPT_AFTER = 3  # saved after this step, restored, the next step replayed
+TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+# RMS(K5 route - plain route) / RMS(plain route) of every parameter's
+# gradient: the reference's bf16 tolerance, as in phase 10
+GRAD_RMS_LIMIT = 5e-2
+CKPT_LOSS_RTOL = 1e-3
+# 6 steps, one checkpoint: 12 steps took phase 11 past 100 s
+TRAIN_MAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "4",
+                   "--seq", "512", "--ckpt-every", "6", "--ckpt-dir",
+                   os.path.join(ROOT, "build", "chip_smoke_train_main")]
+
+
+def train_pipeline(vocab: int, smi: str) -> tuple:
+    """``LineageDataPipeline`` over ``TRAIN_DOCS`` synthetic documents at
+    the model's vocabulary on the card, built and queried with the scan
+    cutovers forced to 0: its K1/K2 launches are kept.  ``lineage_of`` the
+    first document of step 0 must equal a numpy-backend PredTrace's answer
+    on the same plan.  Returns (pipeline, kept launches, launches by
+    variant)."""
+    from repro_torch.core import PredTrace, ScanEngine
+    from repro_torch.data.pipeline import LineageDataPipeline, synth_corpus
+    from repro_torch.kernels.pred_filter import LAUNCHES, reset_launches
+
+    catalog, tokens = synth_corpus(n_docs=TRAIN_DOCS, vocab=vocab, seed=0)
+    calls, stage = [], {"query": "train pipeline", "name": "build"}
+    for k in CUTOVER_ENV:
+        os.environ[k] = "0"
+    unwrap = capture_batch_launches(calls, stage)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        pipe = LineageDataPipeline(catalog, tokens, seq_len=TRAIN_S,
+                                   batch=TRAIN_B, seed=0, device="cuda")
+        build_s = time.perf_counter() - t0
+        built = dict(LAUNCHES)
+        did = int(pipe.batch_at(0)["doc_ids"][0, 0])
+        stage["name"] = "lineage_of"
+        t0 = time.perf_counter()
+        got = pipe.lineage_of(did)
+        lineage_s = time.perf_counter() - t0
+    finally:
+        unwrap()
+        for k in CUTOVER_ENV:
+            os.environ.pop(k, None)
+    launches = dict(LAUNCHES)
+    oracle = PredTrace(catalog, pipe.plan, scan_engine=ScanEngine("numpy"))
+    oracle.infer()
+    out = oracle.run().output
+    for c in out.columns:
+        if not np.array_equal(out[c], pipe.selected[c]):
+            raise AssertionError(f"train pipeline: selected column {c} differs")
+    want = oracle.query(int(np.nonzero(out["doc_id"] == did)[0][0]))
+    if not _answers_equal(got, want):
+        raise AssertionError(f"train pipeline: lineage_of({did}) differs from "
+                             f"numpy")
+    emit({"phase": "train_pipeline", "docs": TRAIN_DOCS,
+          "selected": int(pipe.selected.nrows), "build_s": build_s,
+          "lineage_of_doc": did, "lineage_of_s": lineage_s,
+          "lineage_rows": {k: len(v) for k, v in got.lineage.items()},
+          "precise": got.precise, "identical_to_numpy": True,
+          "launches_build": built, "launches_total": launches,
+          "nvidia_smi": smi})
+    if len(calls) != launches["cmp"] + launches["sets"] or not calls:
+        raise AssertionError(f"train pipeline: {len(calls)} kept calls, "
+                             f"launches {launches}")
+    return pipe, calls, launches
+
+
+def train_batch(pipe, step: int) -> dict:
+    raw = pipe.batch_at(step)
+    return {k: torch.from_numpy(raw[k]).cuda() for k in ("tokens", "labels")}
+
+
+def train_flops(model, tokens: int, sequences: int) -> int:
+    """6 x N x tokens (N: every parameter but the embedding table) plus 3 x
+    the causal attention products (forward and backward), plus remat's
+    extra forward: 2 x the blocks' parameters x tokens and 1 x the
+    attention products; the attention products are 2 x 2 H D per unmasked
+    (query, key) pair (QK^T, PV), every layer and sequence."""
+    cfg = model.cfg
+    named = dict(model.named_parameters())
+    n = sum(p.numel() for k, p in named.items() if k != "embed")
+    n_blocks = sum(p.numel() for k, p in named.items() if k.startswith("layers."))
+    attn = (4 * cfg.n_heads * cfg.hd * attention_pairs(TRAIN_S, cfg.sliding_window)
+            * cfg.n_layers * sequences)
+    return 6 * n * tokens + 3 * attn + 2 * n_blocks * tokens + attn
+
+
+def timed_train_step(step, model, opt, batch) -> tuple:
+    """One train step: (opt, metrics, host seconds to a synchronise, K5
+    launches)."""
+    torch.cuda.synchronize()
+    before = k5_launches()
+    t0 = time.perf_counter()
+    model, opt, metrics = step(model, opt, batch)
+    torch.cuda.synchronize()
+    return opt, metrics, time.perf_counter() - t0, k5_launches() - before
+
+
+def train_grad_check(model, batch, smi: str) -> dict:
+    """One microbatch through ``loss_fn`` under autograd twice, the same
+    weights and batch: the K5 route (``mha_flash``, the FlashAttention
+    node) and the plain route (``mha_ref`` under autograd).  Every
+    parameter's gradient within ``GRAD_RMS_LIMIT``; the attention weights
+    and biases must have non-zero gradients on the K5 route."""
+    from repro_torch.kernels.flash_attn import ops, rms_ratio
+    from repro_torch.models import layers
+
+    mb = {k: v[:TRAIN_B // TRAIN_ACCUM] for k, v in batch.items()}
+    params = dict(model.named_parameters())
+
+    def grads():
+        loss = model.loss_fn(mb)
+        return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
+
+    before = k5_launches()
+    t0 = time.perf_counter()
+    loss_k5, g_k5 = grads()
+    torch.cuda.synchronize()
+    k5_s = time.perf_counter() - t0
+    launches = k5_launches() - before
+    layers.mha_flash = ops.mha_ref
+    t0 = time.perf_counter()
+    try:
+        loss_plain, g_plain = grads()
+        torch.cuda.synchronize()
+    finally:
+        layers.mha_flash = ops.mha_flash
+    plain_s = time.perf_counter() - t0
+    worst, zero = {}, []
+    for name, a, b in zip(params, g_k5, g_plain):
+        kind = name.split(".")[-1]
+        r = rms_ratio(a, b)
+        if r > worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (r, name)
+        if kind in ("wq", "wk", "wv", "bq", "bk", "bv") and not bool(a.abs().max() > 0):
+            zero.append(name)
+    rec = {"phase": "train_grad_check", "model": TRAIN_ARCH,
+           "microbatch": TRAIN_B // TRAIN_ACCUM, "S": TRAIN_S, "remat": True,
+           "loss_k5": loss_k5, "loss_plain": loss_plain,
+           "k5_launches": launches, "k5_route_s": k5_s,
+           "plain_route_s": plain_s,
+           "worst_rms_ratio_by_kind": {k: v[0] for k, v in sorted(worst.items())},
+           "worst_leaf_by_kind": {k: v[1] for k, v in sorted(worst.items())},
+           "rms_limit": GRAD_RMS_LIMIT, "zero_attention_grads": zero,
+           "nvidia_smi": smi}
+    emit(rec)
+    del g_k5, g_plain
+    if zero or max(v[0] for v in worst.values()) > GRAD_RMS_LIMIT:
+        raise AssertionError(f"K5-route gradients: {rec}")
+    if launches != 2 * model.cfg.n_layers:
+        raise AssertionError(f"gradient check launched K5 {launches} times")
+    return rec
+
+
+def train_checkpoint_save(model, opt, n: int) -> tuple:
+    """Save ``train_state(model, opt)`` after step ``n`` under build/, then
+    restore it on the card into a fresh model and AdamW state: every leaf
+    bit-identical.  Returns (fresh model, restored state, record)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten, train_state
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ckpt = CheckpointManager(TRAIN_CKPT_DIR, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(n, train_state(model, opt))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    fresh = Model(model.cfg, "cuda", torch.bfloat16)
+    like = train_state(fresh, adamw.init(dict(fresh.named_parameters()),
+                                         adamw.AdamWConfig()))
+    t0 = time.perf_counter()
+    got_step, tree = ckpt.restore(like, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    fresh.load_state_dict(tree["params"])
+    opt2 = tree["opt"]
+    del tree
+    mine, theirs = flatten(train_state(fresh, opt2)), flatten(train_state(model, opt))
+    same = [a == b and x.dtype == y.dtype and torch.equal(x, y)
+            for (a, x), (b, y) in zip(mine, theirs)]
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    rec = {"step": n, "save_s": save_s, "restore_s": restore_s,
+           "bytes": nbytes, "leaves": len(theirs),
+           "bit_identical": len(mine) == len(theirs) and all(same)}
+    if got_step != n or not rec["bit_identical"]:
+        raise AssertionError(f"checkpoint: step {got_step} of {n}, "
+                             f"{sum(same)} of {len(theirs)} leaves identical")
+    return fresh, opt2, rec
+
+
+def train_main(smi: str) -> dict:
+    """``launch/train.py``'s main on the card at full width: qwen2-0.5b, 6
+    steps of batch 4 at S = 512, a checkpoint after step 6, its own
+    512-document pipeline and lineage query."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import train
+
+    ckpt_dir = TRAIN_MAIN_ARGS[-1]
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    buf = io.StringIO()
+    before = k5_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train.main(TRAIN_MAIN_ARGS)
+    secs = time.perf_counter() - t0
+    launches = k5_launches() - before
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        print(line, flush=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = {"phase": "train_main", "args": TRAIN_MAIN_ARGS[:-2],
+           "losses": losses, "seconds": secs, "k5_launches": launches,
+           "printed": printed, "nvidia_smi": smi}
+    emit(rec)
+    if (len(losses) != 6 or not np.isfinite(losses).all()
+            or not any(line.startswith("[lineage] doc") for line in printed)):
+        raise AssertionError("launch/train: bad losses or no [lineage] line")
+    return rec
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 11: the training path on the card, every launch count at 0
+    just before.  K5 launches are counted per train step (2 x 24 x 4: the
+    forward and remat's recompute of every layer, 4 microbatches) and over
+    the phase (all from train steps, the gradient check and
+    ``launch/train``); the kept launches are replayed against the plain
+    version afterwards.  Returns the launches and replay records."""
+    from dataclasses import replace
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attn import attention_ref
+    from repro_torch.kernels.pred_filter import LAUNCHES as PF_LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    reset_all_launches()
+    cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
+    pipe, pf_calls, pf_launches = train_pipeline(cfg.vocab, smi)
+    L = cfg.n_layers
+    want = 2 * L * TRAIN_ACCUM
+    t0 = time.perf_counter()
+    model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    opt = adamw.init(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    per_step, runs = [], {}
+
+    torch.cuda.reset_peak_memory_stats()
+    kept, undo = keep_k5_calls({0})  # microbatch 0's first layer
+    try:
+        opt, m, warm_s, n = timed_train_step(step, model, opt, train_batch(pipe, 0))
+    finally:
+        undo()
+    per_step.append(n)
+    runs[0] = (warm_s, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
+    fresh = ck = None
+    for i in range(1, 1 + TRAIN_TIMED):
+        opt, m, secs, n = timed_train_step(step, model, opt, train_batch(pipe, i))
+        per_step.append(n)
+        runs[i] = (secs, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
+        if i == TRAIN_CKPT_AFTER:
+            fresh, fresh_opt, ck = train_checkpoint_save(model, opt, i)
+    peak = torch.cuda.max_memory_allocated()
+    secs = [runs[i][0] for i in range(1, 1 + TRAIN_TIMED)]
+    med = statistics.median(secs)
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(model, tokens, TRAIN_B)
+    params = sum(p.numel() for p in model.parameters())
+    losses = [runs[i][1] for i in sorted(runs)]
+    emit({"phase": "train_step", "model": TRAIN_ARCH, "layers": L,
+          "params": params, "param_dtypes": sorted({str(p.dtype) for p in
+                                                    model.parameters()}),
+          "B": TRAIN_B, "S": TRAIN_S, "accum_steps": TRAIN_ACCUM,
+          "microbatch": TRAIN_B // TRAIN_ACCUM, "remat": True, "init_s": init_s,
+          "warmup_s": warm_s, "seconds": secs, "seconds_median": med,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+          "model_flops": flops,
+          "flops_formula": "6 x N x tokens + 3 x A + remat's extra forward "
+                           "(2 x N_blocks x tokens + A); N = parameters but "
+                           "the embedding table, A = 2 x 2 H D x unmasked "
+                           "(query, key) pairs x layers x sequences",
+          "flop_rate": flops / med, "share_of_bf16_peak": flops / med / BF16_FLOPS_PER_S,
+          "max_memory_allocated": peak, "losses": losses,
+          "grad_norms": [runs[i][2] for i in sorted(runs)],
+          "lrs": [runs[i][3] for i in sorted(runs)],
+          "k5_launches_per_step": per_step, "want_k5_launches_per_step": want,
+          "nvidia_smi": smi})
+    if not all(np.isfinite(r[1]) and np.isfinite(r[2]) for r in runs.values()):
+        raise AssertionError(f"train step: non-finite loss or gradient norm {runs}")
+
+    # step TRAIN_CKPT_AFTER + 1 again, from the restored state, under the
+    # profiler
+    restored = {}
+
+    def restored_step():
+        _, restored["opt"], restored["metrics"] = step(
+            fresh, fresh_opt, train_batch(pipe, TRAIN_CKPT_AFTER + 1))
+
+    before = k5_launches()
+    t0 = time.perf_counter()
+    prof = profile_device(restored_step, med)
+    prof_s = time.perf_counter() - t0
+    per_step.append(k5_launches() - before)
+    emit({"phase": "train_profile", "model": TRAIN_ARCH, "step":
+          TRAIN_CKPT_AFTER + 1, "seconds_median": med, "seconds": prof_s,
+          **prof, "nvidia_smi": smi})
+    kept_loss = runs[TRAIN_CKPT_AFTER + 1][1]
+    ck.update(phase="train_checkpoint",
+              loss_restored=float(restored["metrics"]["loss"]),
+              loss_uninterrupted=kept_loss, loss_rtol=CKPT_LOSS_RTOL,
+              nvidia_smi=smi)
+    emit(ck)
+    del fresh, fresh_opt, restored
+    free_card()
+    if abs(ck["loss_restored"] - kept_loss) > CKPT_LOSS_RTOL * abs(kept_loss):
+        raise AssertionError(f"restored step's loss {ck['loss_restored']} vs "
+                             f"{kept_loss}")
+
+    batch = train_batch(pipe, 0)
+    grad = train_grad_check(model, batch, smi)
+    del model, opt, batch
+    free_card()
+    main_rec = train_main(smi)
+    free_card()
+
+    launches = k5_launches()
+    counted = sum(per_step) + grad["k5_launches"] + main_rec["k5_launches"]
+    main_want = 6 * L  # 6 steps, one microbatch, remat off
+    emit({"phase": "train_launches", "k5_launches": launches,
+          "k5_launches_of_train_steps": counted, "k5_per_step": per_step,
+          "want_per_step": want, "k5_grad_check": grad["k5_launches"],
+          "k5_launch_train": main_rec["k5_launches"],
+          "pred_filter": dict(PF_LAUNCHES)})
+    if any(n != want for n in per_step):
+        raise AssertionError(f"train steps launched K5 {per_step}, want {want}")
+    if launches != counted or main_rec["k5_launches"] != main_want:
+        raise AssertionError(f"K5 launched {launches} times in phase 11, its "
+                             f"train steps account for {counted}")
+
+    replays = []
+    t0 = time.perf_counter()
+    for i in sorted(kept):
+        layer = i  # microbatch 0's forward: launch i is layer i
+        rec = replay_k5(TRAIN_ARCH, layer, kept[i], smi, path="train step",
+                        phase="train_kernel", microbatch=0)
+        q, k, v, window, _ = kept[i]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        g = torch.randn_like(q)
+
+        def plain_backward():
+            with torch.enable_grad():
+                a = attention_ref(*leaves, window=window)
+                return torch.autograd.grad(a, leaves, g)
+
+        rec["backward_plain_ms"] = time_ms(plain_backward, reps=3, inner=1)
+        # the library's yardstick: SDPA's backward on the same operands
+        q4, k4, v4 = (t.detach().view(1, *t.shape).requires_grad_() for t in leaves)
+        if window is None:
+            lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        else:
+            pos = torch.arange(q.shape[1], device="cuda")
+            keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+        rec["backward_library_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib, (q4, k4, v4), g[None],
+                                        retain_graph=True), reps=10, inner=2)
+        emit({"phase": "train_k5_backward", "case": rec["case"],
+              "backward_plain_ms": rec["backward_plain_ms"],
+              "backward_library_ms": rec["backward_library_ms"],
+              "per_step": L * TRAIN_ACCUM, "nvidia_smi": smi})
+        replays.append(rec)
+        del leaves, g, lib, q4, k4, v4
+        free_card()
+    kept.clear()
+    emit({"phase": "train_k5_replay", "seconds": time.perf_counter() - t0})
+    pf = replay_launches(pf_calls, "train_pipeline",
+                         lambda where, args: (variant(args),))
+    pf_calls.clear()
+    emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
+          "k5_launches": launches})
+    return {"launches": launches, "replays": replays, "per_step": want,
+            "pred_filter": pf_launches, "pred_filter_recs": pf}
+
+
+# --------------------------------------------------------------------------- #
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the main-path phase")
+    ap.add_argument("--only-train", action="store_true",
+                    help="phases 1, 2 and 11 alone, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; the port's smoke run needs one")
@@ -2122,6 +2563,10 @@ def main() -> None:
     # float32 products of the plain versions stay in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only_train:
+        phase_train(smi)
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        return
     n_lineitem = 6_001_215  # TPC-H sf-1 lineitem rows
     k1, k2 = phase_kernels(n_lineitem)
     phase_device_ratio(smi)
@@ -2144,35 +2589,54 @@ def main() -> None:
     del inp
     free_card()
     lm = phase_lm(smi, recs["flash_attention"])
+    train = phase_train(smi)
     if any(m in sys.modules for m in ("jax", "repro")):
         raise AssertionError("jax or the reference package was imported")
 
-    def entry(name, recs, variant, launches, source=SOURCE, pick=0, also=()):
+    def entry(name, recs, variant, launches, source=SOURCE, pick=0, also=(),
+              train_launches=None):
         r = recs[pick]
+        more = {}
+        if train_launches is not None:  # phase 5's main path and phase 11's
+            more = {"launches_by_phase": {"main_path": int(launches[variant]),
+                                          "train": int(train_launches[variant])}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[variant],
-                "launches": int(launches[variant]),
+                "launches": int(launches[variant]) + int(
+                    (train_launches or {}).get(variant, 0)), **more,
                 "max_abs_err": max(x["max_abs_err"] for x in [*recs, *also]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"]}
 
-    def k5_entry(lm, entry_recs, entry_launches, source):
-        """K5 on the LM path (phase 10): its launches there, its time at the
-        first replayed llama3.2-3b layer; phase 6's cases beside."""
+    def k5_entry(lm, train, entry_recs, entry_launches, source):
+        """K5 on the LM paths (phases 10 and 11): its launches there, its
+        time at the first replayed llama3.2-3b layer; the training shape,
+        phase 6's cases beside."""
         r = lm["replays"][0]
+        replays = lm["replays"] + train["replays"]
         return {"name": "flash_attention (K5)", "route": "cuda",
                 "source": source, "replaces": REPLACES["flash_attention"],
-                "launches": int(lm["launches"]),
+                "launches": int(lm["launches"]) + int(train["launches"]),
+                "launches_by_phase": {"lm": int(lm["launches"]),
+                                      "train": int(train["launches"])},
                 "launches_per_prefill": lm["per_prefill"],
+                "launches_per_train_step": train["per_step"],
                 "entry_launches": int(entry_launches["flash_attention"]),
                 "max_abs_err": max(x["max_abs_err"]
-                                   for x in [*lm["replays"], *entry_recs]),
+                                   for x in [*replays, *entry_recs]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"],
-                "model_path_ms": {x["case"]: x["ms"] for x in lm["replays"]},
+                "model_path_ms": {x["case"]: x["ms"] for x in replays},
+                "train_backward_plain_ms": {x["case"]: x["backward_plain_ms"]
+                                            for x in train["replays"]},
+                "train_backward_library_ms": {
+                    x["case"]: x["backward_library_ms"] for x in train["replays"]},
                 "entry_ms": {x["case"]: x["ms"] for x in entry_recs}}
+
+    def train_pf(v):  # phase 11's replayed K1/K2 launch of one variant
+        return [r for key, r in train["pred_filter_recs"].items() if key == (v,)]
 
     def largest(recs):  # the main path's call with the most K x N
         return max(range(len(recs)), key=lambda i: recs[i]["k"] * recs[i]["n"])
@@ -2181,16 +2645,18 @@ def main() -> None:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [
         entry("pred_filter_batch (comparison variant, K1)", main_recs["cmp"],
-              "cmp", main_launches, pick=largest(main_recs["cmp"]), also=k1),
+              "cmp", main_launches, pick=largest(main_recs["cmp"]),
+              also=[*k1, *train_pf("cmp")], train_launches=train["pred_filter"]),
         entry("pred_filter_batch (set variant, K2)", main_recs["sets"],
-              "sets", main_launches, pick=largest(main_recs["sets"]), also=k2),
+              "sets", main_launches, pick=largest(main_recs["sets"]),
+              also=[*k2, *train_pf("sets")], train_launches=train["pred_filter"]),
         entry("pred_filter (single binding, K3)", recs["single"], "single",
               entry_launches),
         entry("membership (K4)", recs["membership"], "membership",
               entry_launches, f"{kdir}/membership/csrc/membership.cu",
               pick=next(i for i, r in enumerate(recs["membership"])
                         if "q3 orders" in r["case"])),
-        k5_entry(lm, recs["flash_attention"], entry_launches,
+        k5_entry(lm, train, recs["flash_attention"], entry_launches,
                  f"{kdir}/flash_attn/csrc/flash_attn.cu"),
     ]}), flush=True)
     print(smi, flush=True)

@@ -1,1 +1,2 @@
-"""Persistence of the port's compressed intermediate store (``store_io``)."""
+"""Persistence: the compressed intermediate store (``store_io``) and the
+training checkpoints (``manager``)."""

@@ -32,9 +32,15 @@ K5_BLOCK = math.lcm(DEFAULT_BQ, DEFAULT_BK)
 
 
 def param(shape, device=None, dtype=torch.float32) -> nn.Parameter:
-    """An uninitialised weight; nothing here takes gradients."""
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    """An uninitialised weight (it takes gradients in ``loss_fn``; prefill
+    and decode run without them)."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+def float32(kw: dict) -> dict:
+    """``kw`` with float32: the reference builds norms, qkv biases and the
+    SSM's constants in float32 whatever the model's dtype."""
+    return dict(kw, dtype=torch.float32)
 
 
 @torch.no_grad()
@@ -108,9 +114,9 @@ class Attention(nn.Module):
         self.wo = param((cfg.n_heads, hd, d), **kw)
         self.bias = cfg.qkv_bias
         if cfg.qkv_bias:
-            self.bq = param((cfg.n_heads, hd), **kw)
-            self.bk = param((cfg.n_kv_heads, hd), **kw)
-            self.bv = param((cfg.n_kv_heads, hd), **kw)
+            self.bq = param((cfg.n_heads, hd), **float32(kw))
+            self.bk = param((cfg.n_kv_heads, hd), **float32(kw))
+            self.bv = param((cfg.n_kv_heads, hd), **float32(kw))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator, cfg: ArchConfig) -> None:

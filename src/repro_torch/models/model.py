@@ -4,9 +4,11 @@ MoE, hybrid attention + SSM, xLSTM, encoder-decoder, VLM stub).
 :class:`Model` holds the weights under the reference's names: a layer's
 weight ``layers.<i>.attn.wq`` is row ``i`` of the reference's stacked
 ``params["layers"]["attn"]["wq"]`` (:func:`params_from_numpy` carries a
-reference tree across).  Layers are a ``ModuleList`` run in a Python loop.
-The decode cache is written in place.  Everything runs on the CUDA card
-unless the caller passes ``device="cpu"``.
+reference tree across).  Layers are a ``ModuleList`` run in a Python loop;
+with ``cfg.remat`` the training loss runs each block under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).  The decode
+cache is written in place.  Everything runs on the CUDA card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm as S
@@ -59,16 +62,16 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ArchConfig, cross: bool = False, **kw):
         super().__init__()
-        self.norm1 = L.param((cfg.d_model,), **kw)
+        self.norm1 = L.param((cfg.d_model,), **L.float32(kw))
         self.attn = L.Attention(cfg, **kw)
         if cfg.parallel_ssm:
             self.ssm = S.Mamba(cfg, **kw)
         if cfg.d_ff > 0:
-            self.norm2 = L.param((cfg.d_model,), **kw)
+            self.norm2 = L.param((cfg.d_model,), **L.float32(kw))
             self.ffn = L.MoE(cfg, **kw) if cfg.moe is not None else L.SwiGLU(cfg, **kw)
         if cross:
             self.cross = L.Attention(cfg, **kw)
-            self.norm_cross = L.param((cfg.d_model,), **kw)
+            self.norm_cross = L.param((cfg.d_model,), **L.float32(kw))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator, cfg: ArchConfig) -> None:
@@ -101,7 +104,7 @@ class Block(nn.Module):
 class XLSTMBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, slstm: bool, **kw):
         super().__init__()
-        self.norm1 = L.param((cfg.d_model,), **kw)
+        self.norm1 = L.param((cfg.d_model,), **L.float32(kw))
         if slstm:
             self.kind_slstm = S.SLSTM(cfg, **kw)
         else:
@@ -129,9 +132,12 @@ class XLSTMBlock(nn.Module):
 class Model(nn.Module):
     """The weights of one architecture and its forward passes.
 
-    ``Model(cfg, device, dtype)`` allocates uninitialised weights of
-    ``dtype`` (the reference keeps float32 master weights; its serving
-    program casts them to bf16); :meth:`init` draws them, and
+    ``Model(cfg, device, dtype)`` allocates uninitialised weights: the
+    matrices (everything the reference draws with ``dense_init``) in
+    ``dtype``, and the leaves the reference builds in float32 (norms, qkv
+    biases, the SSM's ``conv_w``, ``A_log`` and ``D``) in float32 whatever
+    ``dtype`` is, so a training step can move them.  At float32 this is the
+    reference's ``M.init`` tree.  :meth:`init` draws them, and
     :func:`params_from_numpy` loads a reference tree.  Activations run in
     ``cfg.dtype``."""
 
@@ -142,7 +148,7 @@ class Model(nn.Module):
         kw = dict(device=dev, dtype=dtype)
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = L.param((V, d), **kw)
-        self.final_norm = L.param((d,), **kw)
+        self.final_norm = L.param((d,), **L.float32(kw))
         self.lm_head = L.param((d, V), **kw)
         n = cfg.n_layers
         if cfg.xlstm:
@@ -165,8 +171,8 @@ class Model(nn.Module):
              dtype=torch.float32) -> "Model":
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
         the target device: ``N(0, 1) / sqrt(fan_in)`` drawn in float32 and
-        cast to ``dtype`` one tensor at a time; norms 1, biases 0; the SSM
-        blocks' own constants as in the reference."""
+        cast to each leaf's dtype one tensor at a time; norms 1, biases 0;
+        the SSM blocks' own constants as in the reference."""
         model = cls(cfg, device, dtype)
         gen = torch.Generator(device=model.device).manual_seed(seed)
         for mod in model.modules():  # each fills its own weights
@@ -200,30 +206,39 @@ class Model(nn.Module):
             logits[..., cfg.vocab:] = -1e30
         return logits
 
-    def _hidden(self, batch: Mapping[str, torch.Tensor]):
-        """The last hidden sequence of every family."""
+    def _hidden(self, batch: Mapping[str, torch.Tensor], remat: bool = False):
+        """The last hidden sequence of every family; with ``remat`` each
+        block keeps only its input and recomputes the rest in the
+        backward."""
         cfg = self.cfg
+
+        def run(fn, *args, **kw):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, **kw)
+            return fn(*args, **kw)
+
         if cfg.encdec:
             enc = batch["frames"].to(_dt(cfg))
             for blk in self.encoder:
-                enc = blk(enc, cfg, causal=False)
+                enc = run(blk, enc, cfg, causal=False)
             x = self._embed(batch["tokens"])
             for blk in self.decoder:
-                x = blk.forward_decdec(x, enc, cfg)
+                x = run(blk.forward_decdec, x, enc, cfg)
             return x
         x = self._inputs_to_hidden(batch)
         for blk in (self.blocks if cfg.xlstm else self.layers):
-            x = blk(x, cfg)
+            x = run(blk, x, cfg)
         return x
 
     # ---- public API: loss / prefill / decode -------------------------------- #
 
-    @torch.no_grad()
     def loss_fn(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Next-token LM loss (the forward value).  batch: tokens [B, S]
-        (+ patches / frames for the stubs), labels [B, S_text]."""
+        """Next-token LM loss, differentiable in the weights (each block
+        under ``torch.utils.checkpoint`` when ``cfg.remat``).  batch: tokens
+        [B, S] (+ patches / frames for the stubs), labels [B, S_text]."""
         cfg = self.cfg
-        logits = self._logits(self._hidden(batch))
+        remat = cfg.remat and torch.is_grad_enabled()
+        logits = self._logits(self._hidden(batch, remat))
         if cfg.encdec:
             return _xent(logits[:, :-1], batch["tokens"][:, 1:])
         if cfg.frontend == "vision":
@@ -319,12 +334,19 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray],
             out[f"{prefix}{k}"] = a if layer is None else a[layer]
 
 
-def params_from_numpy(cfg: ArchConfig, tree: Mapping, device=None) -> Model:
-    """A :class:`Model` holding the reference's ``M.init(cfg, key)[0]``,
-    given as a nested dict of numpy arrays: the stacked ``[L, ...]`` leaves
-    of ``layers``, ``encoder`` and ``decoder`` are split per layer, the
-    xLSTM ``blocks`` list taken block by block.  The weights keep the
-    arrays' dtype."""
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array on ``device``; ``ml_dtypes`` bfloat16 by its bits."""
+    if a.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def flat_numpy(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference parameter tree (``M.init(cfg, key)[0]``, or its
+    gradients) as numpy arrays under the port's parameter names: the
+    stacked ``[L, ...]`` leaves of ``layers``, ``encoder`` and ``decoder``
+    split per layer, the xLSTM ``blocks`` list taken block by block."""
     flat: Dict[str, np.ndarray] = {}
     for key, sub in tree.items():
         if key in ("layers", "encoder", "decoder"):
@@ -335,10 +357,16 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, device=None) -> Model:
                 _flatten(blk, f"blocks.{i}.", flat)
         else:
             flat[key] = np.asarray(sub)
-    dtypes = {a.dtype for a in flat.values()}
-    if len(dtypes) != 1:
-        raise ValueError(f"the tree mixes dtypes {sorted(map(str, dtypes))}")
-    state = {k: torch.tensor(a) for k, a in flat.items()}
-    model = Model(cfg, device, next(iter(state.values())).dtype)
-    model.load_state_dict(state, strict=True)
+    return flat
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Mapping, device=None) -> Model:
+    """A :class:`Model` holding the reference's ``M.init(cfg, key)[0]``,
+    given as a nested dict of numpy arrays (:func:`flat_numpy`).  Each
+    weight keeps its array's dtype, so a tree that mixes dtypes loads as it
+    is."""
+    dev = resolve_device(device)
+    state = {k: _tensor(a, dev) for k, a in flat_numpy(cfg, tree).items()}
+    model = Model(cfg, dev, state["embed"].dtype)
+    model.load_state_dict(state, strict=True, assign=True)
     return model

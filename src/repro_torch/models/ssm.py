@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
-from .layers import _proj, dense_init_, param
+from .layers import _proj, dense_init_, float32, param
 
 
 def _mm(x, w):
@@ -33,11 +33,11 @@ class Mamba(nn.Module):
         d_in, N = m.expand * cfg.d_model, m.state_dim
         kw = dict(device=device, dtype=dtype)
         self.w_in = param((cfg.d_model, 2 * d_in), **kw)
-        self.conv_w = param((m.conv_width, d_in), **kw)
+        self.conv_w = param((m.conv_width, d_in), **float32(kw))
         self.w_bc = param((d_in, 2 * N), **kw)
         self.w_dt = param((d_in, d_in), **kw)
-        self.A_log = param((d_in, N), **kw)
-        self.D = param((d_in,), **kw)
+        self.A_log = param((d_in, N), **float32(kw))
+        self.D = param((d_in,), **float32(kw))
         self.w_out = param((d_in, cfg.d_model), **kw)
 
     @torch.no_grad()
@@ -82,10 +82,17 @@ def mamba_forward(p: Mamba, x, cfg: ArchConfig):
     dt_t = dt.transpose(0, 1)
     decay = torch.exp(dt_t[..., None] * A)
     u = (dt_t * xs.transpose(0, 1).float())[..., None] * B_.transpose(0, 1)[:, :, None, :]
-    hs = torch.empty_like(u)
     h = torch.zeros_like(u[0])
-    for t in range(u.shape[0]):
-        h = torch.addcmul(u[t], decay[t], h, out=hs[t])
+    if torch.is_grad_enabled():  # autograd takes no ``out=`` writes
+        steps = []
+        for t in range(u.shape[0]):
+            h = torch.addcmul(u[t], decay[t], h)
+            steps.append(h)
+        hs = torch.stack(steps)
+    else:
+        hs = torch.empty_like(u)
+        for t in range(u.shape[0]):
+            h = torch.addcmul(u[t], decay[t], h, out=hs[t])
     del decay, u
     ys = torch.einsum("sbdn,sbn->sbd", hs, C_.transpose(0, 1))
     y = ys.transpose(0, 1).to(x.dtype) + xs * p.D.to(x.dtype)
