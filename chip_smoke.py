@@ -141,9 +141,32 @@ Phases, each printing one JSON line:
                  launch against the plain version, timed beside SDPA, with
                  the plain backward's time.  ``--only-train`` runs
                  phases 1, 2 and 11 alone.
+12. mesh       — after phase 11, with its models freed and every launch
+                 count at 0: the same paths sharded over a ``DeviceMesh``
+                 (``make_host_mesh(data=WORLD_SIZE, model=1)``, one NCCL
+                 rank here), DTensor weights placed by ``tree_sharding``.
+                 qwen2-0.5b through ``build_train(fsdp=True)`` at phase
+                 11's shape: the first step's loss and weights against the
+                 unsharded step from the same seed and batch (loss rtol
+                 1e-3, weights within 2 x the step's learning rate), every
+                 K5 launch of that step held to the plain version at once,
+                 then 5 timed steps (median, tokens/s, peak memory), K5 192
+                 launches a step on the ranks' own shards; the sharded
+                 train state saved and restored through
+                 ``restore(shardings=)`` bit-identical.  llama3.2-3b
+                 through ``build_prefill`` at S = 4,096 against
+                 ``Model.prefill`` (RMS ratio <= 5e-2, the same top-1),
+                 28 launches a call, each of the first call's held to the
+                 plain version; ``build_decode``: 16 prompt tokens and
+                 16 greedy ones, the same tokens as the unsharded decode.
+                 ``distributed_refine`` over the mesh for q3 and q12 row 0
+                 at sf 1, identical to numpy, its K1/K2 launches replayed
+                 against the plain version.  Kept K5 launches are replayed
+                 as in phase 11.  ``--only-mesh`` runs phases 1, 2 and 12
+                 alone.
 
-Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5 and
-11's, K5's phases 10 and 11's), the raw ``nvidia-smi`` line, and the
+Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5, 11 and
+12's, K5's phases 10, 11 and 12's), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
 script refuses to run without a CUDA device.  It imports neither ``jax`` nor
 the reference package.
@@ -1807,6 +1830,45 @@ def keep_k5_calls(indices) -> tuple:
     return kept, lambda: setattr(ops, "flash_attention", real)
 
 
+def check_k5_calls(path: str, smi: str) -> tuple:
+    """Wrap K5's wrapper as ``mha_flash`` calls it so that every call from
+    now on is held against the plain version at once: within
+    ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
+    elements (checks are not launches of the path).  Returns (done, undo):
+    ``done()`` emits one line with the count and the worst shares, raises
+    if a call failed, and unwraps."""
+    from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_ref,
+                                                ops, rms_ratio)
+
+    real = ops.flash_attention
+    seen = {"checked": 0, "worst_share": 0.0, "worst_rms": 0.0}
+
+    def wrapper(q, k, v, window=None, **kw):
+        out = real(q, k, v, window=window, **kw)
+        with torch.no_grad():
+            want = attention_ref(q, k, v, window=window)
+            share = limit_share(out, want, q, k, v, window)
+            rms = rms_ratio(out, want)
+            del want
+        seen["checked"] += 1
+        seen["worst_share"] = max(seen["worst_share"], share)
+        seen["worst_rms"] = max(seen["worst_rms"], rms)
+        return out
+
+    ops.flash_attention = wrapper
+
+    def done() -> dict:
+        ops.flash_attention = real
+        rec = {"phase": "mesh_k5_check", "path": path, **seen,
+               "rms_limit": BF16_RMS_LIMIT, "nvidia_smi": smi}
+        emit(rec)
+        if seen["worst_share"] > 1 or seen["worst_rms"] > BF16_RMS_LIMIT:
+            raise AssertionError(f"K5 on the {path}: {rec}")
+        return rec
+
+    return done
+
+
 def k5_launches() -> int:
     from repro_torch.kernels.flash_attn import LAUNCHES
 
@@ -2529,7 +2591,389 @@ def phase_train(smi: str) -> dict:
     emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
     return {"launches": launches, "replays": replays, "per_step": want,
+            "first_loss": runs[0][1],
             "pred_filter": pf_launches, "pred_filter_recs": pf}
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the same paths over a DeviceMesh
+# --------------------------------------------------------------------------- #
+MESH_PREFILL_ARCH = "llama3.2-3b"
+MESH_DECODE_B, MESH_DECODE_PROMPT, MESH_DECODE_GEN = 2, 16, 16
+MESH_QUERIES = ("q3", "q12")
+MESH_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
+# the sharded step against the unsharded one from the same seed and batch:
+# one rank runs the same kernels on the same tensors, so the loss and the
+# clip norm agree to 1e-5 and every weight to an eighth of the step's
+# learning rate (a first AdamW step moves a weight by about lr whatever
+# its gradient, so a wrong, zero or cut-off gradient moves it by lr or 2 lr)
+MESH_RTOL, MESH_WEIGHT_LR_SHARE = 1e-5, 1 / 8
+
+
+def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
+    """qwen2-0.5b at phase 11's shape: one unsharded step (the reference),
+    then ``build_train(fsdp=True)``: a warm-up step held to it and 5 timed
+    steps; the sharded state checkpointed and restored.  Returns the
+    launches, the replay record and the record of the steps."""
+    from dataclasses import replace
+
+    from repro_torch.checkpoint.manager import (CheckpointManager, flatten,
+                                                train_state, unflatten)
+    from repro_torch.compat import DTensor
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import LineageDataPipeline, synth_corpus
+    from repro_torch.distrib.sharding import layout_of
+    from repro_torch.launch.steps import build_train, make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
+    L = cfg.n_layers
+    want = 2 * L * TRAIN_ACCUM
+    catalog, tokens = synth_corpus(n_docs=TRAIN_DOCS, vocab=cfg.vocab, seed=0)
+    pipe = LineageDataPipeline(catalog, tokens, seq_len=TRAIN_S,
+                               batch=TRAIN_B, seed=0, device="cuda")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    batch0 = train_batch(pipe, 0)
+
+    ref = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    _, m_ref, ref_s, ref_launches = timed_train_step(
+        make_train_step(cfg, opt_cfg), ref,
+        adamw.init(dict(ref.named_parameters()), opt_cfg), batch0)
+    ref_w = [p.detach() for p in ref.parameters()]
+    ref_loss, lr = float(m_ref["loss"]), float(m_ref["lr"])
+    ref_norm = float(m_ref["grad_norm"])
+    del ref, m_ref
+    free_card()
+
+    model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    opt = adamw.init(dict(model.named_parameters()), opt_cfg)
+    step, _ = build_train(mesh, cfg, ShapeConfig("train_4k", TRAIN_S, TRAIN_B,
+                                                 "train"), opt_cfg, fsdp=True)
+    torch.cuda.synchronize()
+    kept, undo = keep_k5_calls({0})
+    checked = check_k5_calls("mesh train step", smi)  # every launch of it
+    before = k5_launches()
+    t0 = time.perf_counter()
+    try:
+        model, opt, m = step(model, opt, batch0)
+        torch.cuda.synchronize()
+    finally:
+        check = checked()
+        undo()
+    warm_s, per_step = time.perf_counter() - t0, [k5_launches() - before]
+    torch.cuda.reset_peak_memory_stats()  # over the timed steps
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    diffs = [float((a.detach().full_tensor().float() - b.float()).abs().max())
+             for a, b in zip(model.parameters(), ref_w)]
+    exact = sum(d == 0 for d in diffs)
+    del ref_w
+    runs = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        opt, mi, secs, n = timed_train_step(step, model, opt, train_batch(pipe, i))
+        runs.append((secs, float(mi["loss"]), float(mi["grad_norm"])))
+        per_step.append(n)
+    med = statistics.median(r[0] for r in runs)
+    placements = sorted({str(tuple(p.placements)) for p in model.parameters()})
+    rec = {"phase": "mesh_train_step", "model": TRAIN_ARCH,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "fsdp": True,
+           "B": TRAIN_B, "S": TRAIN_S, "accum_steps": TRAIN_ACCUM,
+           "remat": True, "warmup_s": warm_s,
+           "seconds": [r[0] for r in runs], "seconds_median": med,
+           "tokens_per_s": TRAIN_B * TRAIN_S / med,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "losses": [loss] + [r[1] for r in runs],
+           "grad_norms": [norm] + [r[2] for r in runs],
+           "unsharded_loss": ref_loss, "unsharded_grad_norm": ref_norm,
+           "unsharded_step_s": ref_s, "phase11_first_loss": phase11_loss,
+           "rtol": MESH_RTOL, "lr": lr, "weights_max_abs_diff": max(diffs),
+           "weights_tol": MESH_WEIGHT_LR_SHARE * lr,
+           "leaves_bit_identical": exact, "leaves": len(diffs),
+           "placements": placements,
+           "k5_launches_per_step": per_step, "want_k5_launches_per_step": want,
+           "unsharded_k5_launches": ref_launches,
+           "warmup_k5_checked": check["checked"], "nvidia_smi": smi}
+    emit(rec)
+    if abs(loss - ref_loss) > MESH_RTOL * abs(ref_loss) or \
+            abs(norm - ref_norm) > MESH_RTOL * abs(ref_norm) or \
+            not lr > 0 or max(diffs) > MESH_WEIGHT_LR_SHARE * lr:
+        raise AssertionError(f"sharded step against unsharded: loss {loss} vs "
+                             f"{ref_loss}, grad norm {norm} vs {ref_norm}, "
+                             f"weights {max(diffs)} at lr {lr}")
+    if any(n != want for n in per_step) or ref_launches != want or \
+            check["checked"] != want:
+        raise AssertionError(f"mesh train steps launched K5 {per_step}, "
+                             f"unsharded {ref_launches}, want {want}")
+    if not all(np.isfinite(r[1]) for r in runs):
+        raise AssertionError(f"mesh train: non-finite loss {runs}")
+
+    import shutil
+
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    state = train_state(model, opt)
+    ckpt = CheckpointManager(MESH_CKPT_DIR, keep=1)
+    t0 = time.perf_counter()
+    ckpt.save(1 + TRAIN_TIMED, state)
+    save_s = time.perf_counter() - t0
+    layouts = unflatten(state, [layout_of(x) if isinstance(x, DTensor) else None
+                                for _, x in flatten(state)])
+    t0 = time.perf_counter()
+    got_step, back = ckpt.restore(state, shardings=layouts, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = [type(x) is type(y) and x.dtype == y.dtype and (
+        x.placements == y.placements and torch.equal(x.to_local(), y.to_local())
+        if isinstance(x, DTensor) else torch.equal(x, y))
+        for (_, x), (_, y) in zip(flatten(state), flatten(back))]
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    ck = {"phase": "mesh_checkpoint", "step": got_step, "save_s": save_s,
+          "restore_s": restore_s, "leaves": len(same),
+          "dtensor_leaves": sum(isinstance(x, DTensor) for _, x in flatten(state)),
+          "bit_identical": all(same), "nvidia_smi": smi}
+    emit(ck)
+    if got_step != 1 + TRAIN_TIMED or not all(same):
+        raise AssertionError(f"mesh checkpoint: {sum(same)} of {len(same)} "
+                             f"leaves identical")
+    del model, opt, state, back, pipe
+    free_card()
+    return {"launches": sum(per_step) + ref_launches, "kept": kept,
+            "per_step": per_step[0], "record": rec}
+
+
+def mesh_launch_train(mesh, smi: str) -> dict:
+    """``launch/train.py``'s step at its own shape (``TRAIN_MAIN_ARGS``:
+    qwen2-0.5b, B = 4, S = 512, remat off): ``make_train_step``, which it
+    ran unsharded before, against ``build_train(fsdp=False)`` on the
+    one-rank mesh, which it runs now; two models from one seed, the same
+    batches, the two steps taken in turn.  Returns the K5 launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+    from repro_torch.launch.steps import build_train, make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    arg = dict(zip(TRAIN_MAIN_ARGS[::2], TRAIN_MAIN_ARGS[1::2]))
+    B, S = int(arg["--batch"]), int(arg["--seq"])
+    cfg = replace(get(TRAIN_ARCH), remat=False)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    steps = {"unsharded": make_train_step(cfg, opt_cfg),
+             "mesh": build_train(mesh, cfg, ShapeConfig("cli", S, B, "train"),
+                                 opt_cfg, fsdp=False)[0]}
+    state = {}
+    for name in steps:
+        m = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        state[name] = [m, adamw.init(dict(m.named_parameters()), opt_cfg)]
+    secs, losses, launches = {k: [] for k in steps}, {k: [] for k in steps}, 0
+    for i in range(1 + TRAIN_TIMED):  # the first, a warm-up, untimed
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            before = k5_launches()
+            t0 = time.perf_counter()
+            model, opt, m = step(*state[name], {"tokens": toks, "labels": toks})
+            loss = float(m["loss"])  # waits for the step, as launch/train does
+            dt = time.perf_counter() - t0
+            launches += k5_launches() - before
+            state[name] = [model, opt]
+            losses[name].append(loss)
+            if i:
+                secs[name].append(dt)
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    rec = {"phase": "mesh_launch_train_step", "model": TRAIN_ARCH, "B": B,
+           "S": S, "remat": False, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                   mesh.shape)),
+           "unsharded_s": secs["unsharded"], "mesh_s": secs["mesh"],
+           "unsharded_s_median": med["unsharded"], "mesh_s_median": med["mesh"],
+           "mesh_over_unsharded": med["mesh"] / med["unsharded"],
+           "losses": losses, "k5_launches": launches, "nvidia_smi": smi}
+    emit(rec)
+    del state, steps
+    free_card()
+    if any(abs(a - b) > MESH_RTOL * abs(a) for a, b in
+           zip(losses["unsharded"], losses["mesh"])):
+        raise AssertionError(f"launch/train's step on the mesh: {losses}")
+    return {"launches": launches, "record": rec}
+
+
+def mesh_prefill_decode(mesh, smi: str) -> dict:
+    """llama3.2-3b in bf16: ``build_prefill`` at S = 4,096 against
+    ``Model.prefill``; ``build_decode`` against ``decode_step`` over 16
+    prompt tokens and 16 greedy ones."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attn import rms_ratio
+    from repro_torch.launch.steps import (build_decode, build_prefill,
+                                          param_shardings, shard_model)
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get(MESH_PREFILL_ARCH)
+    L = cfg.n_layers
+    model = lm_model(MESH_PREFILL_ARCH, smi)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, LM_PREFILL_S),
+                                     generator=gen, device="cuda")}
+    want, plain_s, plain_n = timed_prefill(lambda m, b: m.prefill(b), model, batch)
+    sharded = shard_model(model, param_shardings(mesh, cfg, fsdp=False)[2])
+    step, _ = build_prefill(mesh, cfg, ShapeConfig("prefill_4k", LM_PREFILL_S,
+                                                   1, "prefill"))
+    kept, undo = keep_k5_calls({0})
+    checked = check_k5_calls("mesh prefill", smi)  # every launch of it
+    try:
+        got, warm_s, warm_n = timed_prefill(step, sharded, batch)
+    finally:
+        check = checked()
+        undo()
+    runs = [timed_prefill(step, sharded, batch) for _ in range(3)]
+    launches = [warm_n] + [n for _, _, n in runs]
+    v = cfg.vocab
+    rms = rms_ratio(got[..., :v], want[..., :v])
+    top1 = bool(torch.equal(got[..., :v].argmax(-1), want[..., :v].argmax(-1)))
+    pre = {"phase": "mesh_prefill", "model": cfg.name, "B": 1, "S": LM_PREFILL_S,
+           "unsharded_s": plain_s, "warmup_s": warm_s,
+           "seconds": [t for _, t, _ in runs],
+           "seconds_median": statistics.median(t for _, t, _ in runs),
+           "rms_ratio": rms, "rms_limit": DECODE_RMS_LIMIT, "same_top1": top1,
+           "bit_identical": bool(torch.equal(got, want)),
+           "k5_launches_per_call": launches, "unsharded_k5_launches": plain_n,
+           "nvidia_smi": smi}
+    emit(pre)
+    if rms > DECODE_RMS_LIMIT or not top1 or any(n != L for n in launches) \
+            or check["checked"] != L:
+        raise AssertionError(f"mesh prefill: {pre}")
+    del want, got, runs
+
+    B, n_in, n_gen = MESH_DECODE_B, MESH_DECODE_PROMPT, MESH_DECODE_GEN
+    shape = ShapeConfig("decode", n_in + n_gen, B, "decode")
+    decode, _ = build_decode(mesh, cfg, shape)
+    prompt = torch.randint(0, cfg.vocab, (B, n_in), generator=gen, device="cuda")
+
+    def run(fn, m):
+        st = model.init_decode_state(B, n_in + n_gen)
+        out, logits, t0 = [], [], time.perf_counter()
+        tok = prompt[:, :1]
+        for i in range(n_in + n_gen - 1):
+            lg, st = fn(m, st, tok)
+            if i + 1 < n_in:
+                tok = prompt[:, i + 1:i + 2]
+            else:
+                tok = lg[..., :v].argmax(-1)
+                out.append(tok)
+                logits.append(lg)
+        torch.cuda.synchronize()
+        return torch.cat(out, 1), torch.cat(logits, 1), time.perf_counter() - t0
+
+    toks1, lg1, s1 = run(lambda m, st, t: m.decode_step(st, t), model)
+    toks2, lg2, s2 = run(decode, sharded)
+    dec = {"phase": "mesh_decode", "model": cfg.name, "B": B,
+           "prompt": n_in, "generated": int(toks1.shape[1]),
+           "same_tokens": bool(torch.equal(toks1, toks2)),
+           "rms_ratio": rms_ratio(lg2[..., :v], lg1[..., :v]),
+           "unsharded_s": s1, "sharded_s": s2,
+           "sharded_tokens_per_s": B * (n_in + n_gen - 1) / s2,
+           "unsharded_tokens_per_s": B * (n_in + n_gen - 1) / s1,
+           "nvidia_smi": smi}
+    emit(dec)
+    if not dec["same_tokens"]:
+        raise AssertionError(f"mesh decode: {dec}")
+    del model, sharded
+    free_card()
+    return {"launches": sum(launches) + plain_n, "kept": kept,
+            "per_prefill": launches[0],
+            "prefill": pre, "decode": dec}
+
+
+def mesh_lineage(mesh, smi: str, sf: float, stage: dict) -> None:
+    """``distributed_refine`` over the process mesh for q3 and q12 row 0 at
+    ``sf``, on the card, each answer identical to numpy's
+    ``query_iterative`` (``stage`` names the query for the kept K1/K2
+    launches)."""
+    from repro_torch.core import PredTrace, ScanEngine, distributed_refine
+    from repro_torch.kernels.pred_filter import LAUNCHES
+    from repro_torch.tpch import ALL_QUERIES, generate
+
+    t0 = time.perf_counter()
+    db = generate(sf=sf, seed=1)
+    gen_s = time.perf_counter() - t0
+    for q in MESH_QUERIES:
+        pt = PredTrace(db, ALL_QUERIES[q](db), scan_engine=ScanEngine("numpy"))
+        pt.infer()
+        pt.run()
+        want = pt.query_iterative(0)
+        binding = pt._output_binding(0, pt.iter_plan.out_params)
+        stage.update(query=q, name="distributed_refine over the process mesh")
+        eng = ScanEngine("torch", device="cuda")
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        ans = distributed_refine(pt.iter_plan, db, binding, mesh=mesh,
+                                 engine=eng)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = sorted(ans.lineage) == sorted(want.lineage) and all(
+            np.array_equal(np.sort(ans.lineage[t]), np.sort(want.lineage[t]))
+            for t in want.lineage)
+        rec = {"phase": "mesh_lineage", "query": q, "row": 0, "sf": sf,
+               "seconds": secs, "iterations": ans.detail["iterations"],
+               "identical_to_numpy": same, "device_scans": eng.stats.device_scans,
+               "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+               "lineage_rows": {t: len(x) for t, x in ans.lineage.items()},
+               "dbgen_s": gen_s, "nvidia_smi": smi}
+        emit(rec)
+        pt.close()
+        if not same or eng.stats.device_scans < 1:
+            raise AssertionError(f"mesh lineage: {rec}")
+    del db
+
+
+def phase_mesh(smi: str, sf: float, phase11_loss=None) -> dict:
+    """Phase 12: the training, serving and lineage paths over a
+    ``DeviceMesh``, every launch count at 0 just before; the kept K5 and
+    K1/K2 launches replayed against the plain version afterwards."""
+    from repro_torch.kernels.pred_filter import LAUNCHES as PF_LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(data=int(os.environ.get("WORLD_SIZE", "1")), model=1)
+    emit({"phase": "mesh", "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "device_type": mesh.device_type,
+          "backend": torch.distributed.get_backend(), "nvidia_smi": smi})
+    pf_calls, stage = [], {"query": "mesh", "name": "train pipeline"}
+    reset_all_launches()
+    unwrap = capture_batch_launches(pf_calls, stage)  # every K1/K2 launch
+    try:
+        train = mesh_train(mesh, smi, phase11_loss)
+        cli = mesh_launch_train(mesh, smi)
+        serve = mesh_prefill_decode(mesh, smi)
+        mesh_lineage(mesh, smi, sf, stage)
+    finally:
+        unwrap()
+    launches, pf_launches = k5_launches(), dict(PF_LAUNCHES)
+    counted = train["launches"] + cli["launches"] + serve["launches"]
+    emit({"phase": "mesh_launches", "k5_launches": launches,
+          "k5_launches_of_steps": counted, "pred_filter": pf_launches})
+    if launches != counted:
+        raise AssertionError(f"K5 launched {launches} times in phase 12, its "
+                             f"steps account for {counted}")
+    if pf_launches["cmp"] < 1 or len(pf_calls) != pf_launches["cmp"] + pf_launches["sets"]:
+        raise AssertionError(f"mesh lineage: {len(pf_calls)} kept calls, "
+                             f"launches {pf_launches}")
+    replays = [replay_k5(TRAIN_ARCH, 0, train["kept"][0], smi,
+                         path="mesh train step", phase="mesh_kernel"),
+               replay_k5(MESH_PREFILL_ARCH, 0, serve["kept"][0], smi,
+                         path="mesh prefill", phase="mesh_kernel")]
+    train["kept"].clear()
+    serve["kept"].clear()
+    pf = replay_launches(pf_calls, "mesh_lineage",
+                         lambda where, args: (variant(args),))
+    pf_calls.clear()
+    free_card()
+    emit({"phase": "mesh_total", "seconds": time.perf_counter() - t_phase,
+          "k5_launches": launches})
+    return {"launches": launches, "replays": replays, "pred_filter": pf_launches,
+            "pred_filter_recs": pf, "per_step": train["per_step"],
+            "per_prefill": serve["per_prefill"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -2539,6 +2983,8 @@ def main() -> None:
                     help="TPC-H scale factor of the main-path phase")
     ap.add_argument("--only-train", action="store_true",
                     help="phases 1, 2 and 11 alone, and no result line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="phases 1, 2 and 12 alone, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; the port's smoke run needs one")
@@ -2563,8 +3009,11 @@ def main() -> None:
     # float32 products of the plain versions stay in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.only_train:
-        phase_train(smi)
+    if args.only_train or args.only_mesh:
+        if args.only_train:
+            phase_train(smi)
+        else:
+            phase_mesh(smi, args.sf)
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         return
     n_lineitem = 6_001_215  # TPC-H sf-1 lineitem rows
@@ -2590,38 +3039,44 @@ def main() -> None:
     free_card()
     lm = phase_lm(smi, recs["flash_attention"])
     train = phase_train(smi)
+    mesh = phase_mesh(smi, args.sf, train["first_loss"])
     if any(m in sys.modules for m in ("jax", "repro")):
         raise AssertionError("jax or the reference package was imported")
 
     def entry(name, recs, variant, launches, source=SOURCE, pick=0, also=(),
-              train_launches=None):
+              later=None):
         r = recs[pick]
         more = {}
-        if train_launches is not None:  # phase 5's main path and phase 11's
-            more = {"launches_by_phase": {"main_path": int(launches[variant]),
-                                          "train": int(train_launches[variant])}}
+        if later:  # phase 5's main path, then phases 11 and 12
+            more = {"launches_by_phase": {
+                "main_path": int(launches[variant]),
+                **{k: int(v[variant]) for k, v in later.items()}}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[variant],
-                "launches": int(launches[variant]) + int(
-                    (train_launches or {}).get(variant, 0)), **more,
+                "launches": int(launches[variant]) + sum(
+                    int(v[variant]) for v in (later or {}).values()), **more,
                 "max_abs_err": max(x["max_abs_err"] for x in [*recs, *also]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"]}
 
-    def k5_entry(lm, train, entry_recs, entry_launches, source):
-        """K5 on the LM paths (phases 10 and 11): its launches there, its
-        time at the first replayed llama3.2-3b layer; the training shape,
-        phase 6's cases beside."""
+    def k5_entry(lm, train, mesh, entry_recs, entry_launches, source):
+        """K5 on the LM paths (phases 10, 11 and 12): its launches there,
+        its time at the first replayed llama3.2-3b layer; the training
+        shape, the mesh's launches and phase 6's cases beside."""
         r = lm["replays"][0]
-        replays = lm["replays"] + train["replays"]
+        replays = lm["replays"] + train["replays"] + mesh["replays"]
         return {"name": "flash_attention (K5)", "route": "cuda",
                 "source": source, "replaces": REPLACES["flash_attention"],
-                "launches": int(lm["launches"]) + int(train["launches"]),
+                "launches": int(lm["launches"]) + int(train["launches"])
+                + int(mesh["launches"]),
                 "launches_by_phase": {"lm": int(lm["launches"]),
-                                      "train": int(train["launches"])},
+                                      "train": int(train["launches"]),
+                                      "mesh": int(mesh["launches"])},
                 "launches_per_prefill": lm["per_prefill"],
                 "launches_per_train_step": train["per_step"],
+                "mesh_launches_per_train_step": mesh["per_step"],
+                "mesh_launches_per_prefill": mesh["per_prefill"],
                 "entry_launches": int(entry_launches["flash_attention"]),
                 "max_abs_err": max(x["max_abs_err"]
                                    for x in [*replays, *entry_recs]),
@@ -2631,12 +3086,16 @@ def main() -> None:
                 "model_path_ms": {x["case"]: x["ms"] for x in replays},
                 "train_backward_plain_ms": {x["case"]: x["backward_plain_ms"]
                                             for x in train["replays"]},
+                "mesh_ms": {x["case"]: x["ms"] for x in mesh["replays"]},
                 "train_backward_library_ms": {
                     x["case"]: x["backward_library_ms"] for x in train["replays"]},
                 "entry_ms": {x["case"]: x["ms"] for x in entry_recs}}
 
-    def train_pf(v):  # phase 11's replayed K1/K2 launch of one variant
-        return [r for key, r in train["pred_filter_recs"].items() if key == (v,)]
+    def later_pf(v):  # phases 11 and 12's replayed K1/K2 launches of one variant
+        return [r for ph in (train, mesh)
+                for key, r in ph["pred_filter_recs"].items() if key == (v,)]
+
+    later = {"train": train["pred_filter"], "mesh": mesh["pred_filter"]}
 
     def largest(recs):  # the main path's call with the most K x N
         return max(range(len(recs)), key=lambda i: recs[i]["k"] * recs[i]["n"])
@@ -2646,17 +3105,17 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("pred_filter_batch (comparison variant, K1)", main_recs["cmp"],
               "cmp", main_launches, pick=largest(main_recs["cmp"]),
-              also=[*k1, *train_pf("cmp")], train_launches=train["pred_filter"]),
+              also=[*k1, *later_pf("cmp")], later=later),
         entry("pred_filter_batch (set variant, K2)", main_recs["sets"],
               "sets", main_launches, pick=largest(main_recs["sets"]),
-              also=[*k2, *train_pf("sets")], train_launches=train["pred_filter"]),
+              also=[*k2, *later_pf("sets")], later=later),
         entry("pred_filter (single binding, K3)", recs["single"], "single",
               entry_launches),
         entry("membership (K4)", recs["membership"], "membership",
               entry_launches, f"{kdir}/membership/csrc/membership.cu",
               pick=next(i for i, r in enumerate(recs["membership"])
                         if "q3 orders" in r["case"])),
-        k5_entry(lm, train, recs["flash_attention"], entry_launches,
+        k5_entry(lm, train, mesh, recs["flash_attention"], entry_launches,
                  f"{kdir}/flash_attn/csrc/flash_attn.cu"),
     ]}), flush=True)
     print(smi, flush=True)

@@ -22,8 +22,15 @@ Layout (one directory per step)::
 * **Integrity**: per-leaf SHA-256 (first 16 hex digits) recorded in the
   manifest and verified on restore; corrupt checkpoints are skipped and the
   previous one is used.
+* **Sharded saves**: a tree of DTensors (a sharded model and its
+  optimizer state) is saved by every rank together: each leaf's full
+  tensor is gathered, and rank 0 alone writes it, in the layout an
+  unsharded save writes.
 * **Elastic restore**: leaves are full logical arrays, placed on the
-  caller's ``device`` (or where the ``like`` tree's leaves live).
+  caller's ``device`` (or where the ``like`` tree's leaves live), or, with
+  ``shardings``, distributed onto the caller's mesh and layouts, whatever
+  the topology (or the package) that saved them.  A DTensor leaf of
+  ``like`` without a sharding takes its own layout.
 * **Retention**: keeps the newest ``keep`` checkpoints, deleting stale ones
   only after a successful new write.
 
@@ -45,6 +52,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..compat import DTensor
 
 BF16 = "bfloat16"
 # threads that move leaves: SHA-256 and file I/O release the GIL
@@ -129,9 +139,15 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
+        """Write ``tree`` as step ``step``.  A tree with DTensor leaves is
+        saved by every rank of its mesh together (each leaf gathered in
+        turn, rank 0 writing); the call returns on every rank once the
+        step is in place."""
         leaves = flatten(tree)
         tmp = self.root / f"step_{step:09d}.tmp"
         final = self.root / f"step_{step:09d}"
+        if any(isinstance(x, DTensor) for _, x in leaves):
+            return self._save_sharded(step, leaves, tmp, final, extra)
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
@@ -153,6 +169,39 @@ class CheckpointManager:
         self._gc()
         return final
 
+    def _save_sharded(self, step: int, leaves, tmp: Path, final: Path,
+                      extra: Optional[Dict]) -> Path:
+        """Gather each DTensor leaf in the tree's order on every rank (the
+        collectives line up), and write it on rank 0 while the next one is
+        gathered."""
+        writer = dist.get_rank() == 0
+        if writer:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+        metas = []
+        with ThreadPoolExecutor(WORKERS) as pool:
+            for i, (name, leaf) in enumerate(leaves):
+                if isinstance(leaf, DTensor):
+                    leaf = leaf.full_tensor()
+                if writer:
+                    metas.append(pool.submit(_write_leaf, tmp, i, name,
+                                             leaf.detach().cpu()
+                                             if isinstance(leaf, torch.Tensor)
+                                             else leaf))
+        if writer:
+            manifest = {"step": step, "treedef": "names",
+                        "n_leaves": len(leaves), "time": time.time(),
+                        "extra": extra or {},
+                        "leaves": [m.result() for m in metas]}
+            (tmp / "manifest.json").write_text(json.dumps(manifest))
+            if final.exists():
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            self._gc()
+        dist.barrier()
+        return final
+
     def _gc(self):
         steps = self.list_steps()
         for s in steps[: -self.keep]:
@@ -170,13 +219,17 @@ class CheckpointManager:
         self,
         like: Any,
         step: Optional[int] = None,
+        shardings: Any = None,
         device=None,
         verify: bool = True,
     ) -> Tuple[int, Any]:
         """Restore into the structure of ``like`` as tensors of the stored
         dtypes, on ``device`` (``None``: the device of ``like``'s leaf where
-        that is a tensor, else the CPU).  The newest step first; a corrupt
-        or partial one is skipped."""
+        that is a tensor, else the CPU).  With ``shardings`` (a tree like
+        ``like`` of ``NamedSharding`` leaves, or None where a leaf stays
+        plain) each leaf is distributed onto its mesh and layout: every
+        rank reads the file and keeps its own part.  The newest step first;
+        a corrupt or partial one is skipped."""
         steps = self.list_steps()
         if step is not None:
             steps = [s for s in steps if s == step]
@@ -185,6 +238,7 @@ class CheckpointManager:
             try:
                 manifest = json.loads((path / "manifest.json").read_text())
                 leaves_like = [leaf for _, leaf in flatten(like)]
+                layouts = _layouts(like, shardings)
                 if manifest["n_leaves"] != len(leaves_like):
                     raise ValueError(f"leaf count mismatch: ckpt {manifest['n_leaves']} "
                                      f"vs {len(leaves_like)}")
@@ -194,6 +248,9 @@ class CheckpointManager:
                     arr = np.load(path / f"leaf_{i:05d}.npy")
                     if verify and _hash(arr) != meta["sha"]:
                         raise IOError(f"hash mismatch leaf {i}")
+                    if layouts[i] is not None:
+                        return layouts[i].distribute(
+                            _to_tensor(arr, meta["dtype"], "cpu"))
                     dev = device if device is not None else (
                         target.device if isinstance(target, torch.Tensor) else "cpu")
                     return _to_tensor(arr, meta["dtype"], dev)
@@ -205,6 +262,31 @@ class CheckpointManager:
                 print(f"[ckpt] step {s} unusable ({e}); trying previous")
                 continue
         raise FileNotFoundError(f"no restorable checkpoint under {self.root}")
+
+
+def _layouts(like: Any, shardings: Any) -> List[Any]:
+    """Per leaf of ``like``, in :func:`flatten`'s order: its sharding from
+    ``shardings`` (a tree of ``like``'s structure), else the layout of a
+    DTensor leaf, else None."""
+    from ..distrib.sharding import layout_of
+
+    out: List[Any] = []
+
+    def walk(t, sh):
+        if t is None:
+            return
+        if isinstance(t, Mapping):
+            for k in sorted(t):
+                walk(t[k], None if sh is None else sh[k])
+        elif isinstance(t, (list, tuple)):
+            for i, sub in enumerate(t):
+                walk(sub, None if sh is None else sh[i])
+        else:
+            out.append(sh if sh is not None else
+                       layout_of(t) if isinstance(t, DTensor) else None)
+
+    walk(like, shardings)
+    return out
 
 
 def train_state(model: torch.nn.Module, opt_state) -> Dict[str, Any]:

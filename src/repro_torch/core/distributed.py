@@ -31,6 +31,12 @@ partitioning, a worker pool, or a device mesh is configured:
   evaluated on the host inside the backend's own split, as on every other
   path.  The reference package's JAX mesh axes (``mesh_axes``) have no
   counterpart here.
+* **Process meshes**: a ``DeviceMesh`` (``launch/mesh.make_host_mesh``)
+  spanning the process group splits each table into ``mesh.size()`` row
+  ranges the same way; rank r scans range r on its own device (its card
+  under NCCL, the CPU under gloo) and one ``all_gather`` per scan joins the
+  masks, so every rank holds the same answer.  Every rank runs the same
+  refinement, so the collectives line up.
 
 ``distributed_refine`` — Algorithm 3 on sharded data — routes the shared
 :func:`repro_torch.core.iterative.refine` fixpoint through a
@@ -47,6 +53,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .expr import Expr
 from .iterative import IterativePlan, refine
@@ -92,6 +100,35 @@ class _DeviceTable:
         return mask
 
 
+class _RankTable:
+    """One table's rows split over a process mesh: this rank's stable
+    row-range slice, scanned by its own backend; the masks of all ranks
+    joined by an ``all_gather`` (each padded to the longest range)."""
+
+    def __init__(self, table: Table, backend: TorchBackend, rank: int,
+                 world: int, comm_device: torch.device):
+        self.nrows = table.nrows
+        self.bounds = shard_bounds(table.nrows, world)
+        lo, hi = self.bounds[rank]
+        self.backend, self.comm_device = backend, comm_device
+        self.sub = Table({k: v[lo:hi] for k, v in table.cols.items()},
+                         table.dicts, table.name)
+
+    def scan(self, prog, binding: Dict[str, object]) -> np.ndarray:
+        width = max(hi - lo for lo, hi in self.bounds)
+        local = torch.zeros(width, dtype=torch.uint8, device=self.comm_device)
+        if self.sub.nrows:
+            mask = self.backend.scan(prog, self.sub, binding)
+            local[:self.sub.nrows] = torch.from_numpy(
+                mask.view(np.uint8)).to(self.comm_device)
+        out = torch.empty(width * len(self.bounds), dtype=torch.uint8,
+                          device=self.comm_device)
+        dist.all_gather_into_tensor(out, local)
+        parts = out.view(len(self.bounds), width).cpu().numpy().view(bool)
+        return np.concatenate([parts[r, :hi - lo]
+                               for r, (lo, hi) in enumerate(self.bounds)])
+
+
 class PartitionExecutor:
     """Fans predicate scans out over table partitions (and devices).
 
@@ -112,7 +149,18 @@ class PartitionExecutor:
         self._pool: Optional[ThreadPoolExecutor] = None
         self.mesh = None
         self._shard_backends: List[TorchBackend] = []
-        if mesh is not None:
+        self._rank_backend: Optional[TorchBackend] = None
+        if mesh is not None and hasattr(mesh, "mesh_dim_names"):  # DeviceMesh
+            if mesh.size() != dist.get_world_size():
+                raise ValueError(f"a process mesh must span the process group: "
+                                 f"{mesh.size()} of {dist.get_world_size()} "
+                                 f"ranks")
+            self.mesh = mesh
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if mesh.device_type == "cuda" else torch.device("cpu"))
+            self._rank_backend = TorchBackend(device=dev, device_cutover=0)
+            self._rank_backend.attach_stats(self.engine.stats)
+        elif mesh is not None:
             # resolved now: a mesh naming a card on a host without one
             # raises here, before any scan
             self.mesh = tuple(resolve_device(d) for d in mesh)
@@ -344,7 +392,7 @@ class PartitionExecutor:
         prog = plan[0] if plan is not None else self.engine.compile(pred)
         return self._device_table(table).scan(prog, binding)
 
-    def _device_table(self, table: Table) -> _DeviceTable:
+    def _device_table(self, table: Table):
         tk = table_uid(table)
         entry = self._device.get(tk)
         if entry is not None and entry[0]() is table \
@@ -355,7 +403,12 @@ class PartitionExecutor:
             if entry is not None and entry[0]() is table \
                     and entry[1].nrows == table.nrows:
                 return entry[1]
-            dt = _DeviceTable(table, self._shard_backends)
+            if self._rank_backend is not None:
+                be = self._rank_backend
+                dt = _RankTable(table, be, dist.get_rank(),
+                                dist.get_world_size(), be.device)
+            else:
+                dt = _DeviceTable(table, self._shard_backends)
             ref = weakref.ref(table,
                               lambda _, k=tk, d=self._device: d.pop(k, None))
             self._device[tk] = (ref, dt)
@@ -377,7 +430,8 @@ def distributed_refine(
     The fixpoint itself is the shared :func:`repro_torch.core.iterative.refine`
     loop; only the scan differs — a :class:`PartitionExecutor` that routes
     every predicate through the shared ScanEngine, or, with a ``mesh`` (a
-    sequence of torch devices), through each shard's kernel launch."""
+    sequence of torch devices, or a ``DeviceMesh`` of processes), through
+    each shard's kernel launch."""
     t0 = time.perf_counter()
     cat = catalog
     if num_partitions is not None:

@@ -513,3 +513,10 @@ class LineageInference:
                     keep.add(c)
             node_schema = set(self.pd.schemas[s.node_id])
             s.keep_cols = sorted(keep & node_schema)
+        # stages of one shared node (a subtree reused by two union branches)
+        # read one materialization: it keeps every column any of them needs
+        shared: Dict[int, Set[str]] = {}
+        for s in lp.stages:
+            shared.setdefault(s.node_id, set()).update(s.keep_cols)
+        for s in lp.stages:
+            s.keep_cols = sorted(shared[s.node_id])

@@ -13,25 +13,33 @@ card unless ``--device cpu`` asks for the kernels' plain versions:
 The weights are the model's dtype in its matrices and float32 in its norms,
 biases and SSM constants (``Model``); the step runs one microbatch per
 batch (``accum_steps`` of the config) with remat off, as the reference's
-``launch/train.py`` sets it.
+``launch/train.py`` sets it.  The step is ``build_train(mesh, ...,
+fsdp=False)`` on a ``(world, 1)`` ``("data", "model")`` mesh: one rank on
+its own, ``WORLD_SIZE`` ranks under ``torchrun`` (each rank one card, or
+one CPU process under gloo with ``--device cpu``), the batch split over
+``data``; rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager, train_state
+from ..compat import AxisType, make_mesh
 from ..configs import get, smoke_config
 from ..data.pipeline import LineageDataPipeline, synth_corpus
+from ..models.config import ShapeConfig
 from ..models.model import Model, _dt
 from ..optim import adamw
 from ..runtime.controller import ClusterController
-from .steps import make_train_step
+from .steps import build_train
 
 
 def make_batch(raw, cfg, seq: int, device) -> dict:
@@ -71,7 +79,17 @@ def main(argv=None):
 
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
     cfg = replace(cfg, remat=False)  # small models: remat off is faster
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=5)
+
+    device_type = "cpu" if args.device == "cpu" else "cuda"
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():  # torchrun's rendezvous
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    mesh = make_mesh((world, 1), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2, device_type=device_type)
+    step_fn, _ = build_train(mesh, cfg, shape, opt_cfg, fsdp=False)
+    log = print if dist.get_rank() == 0 else (lambda *a, **k: None)
 
     model = Model.init(cfg, seed=0, device=args.device, dtype=_dt(cfg))
     dev = model.device
@@ -80,10 +98,9 @@ def main(argv=None):
     catalog, tokens = synth_corpus(n_docs=512, vocab=cfg.vocab, seed=0)
     pipe = LineageDataPipeline(catalog, tokens, seq_len=args.seq,
                                batch=args.batch, seed=0, device=dev)
-    print(f"[data] selected {pipe.selected.nrows} docs; "
-          f"{len(pipe.pt.lineage_plan.stages)} intermediate(s) materialized")
+    log(f"[data] selected {pipe.selected.nrows} docs; "
+        f"{len(pipe.pt.lineage_plan.stages)} intermediate(s) materialized")
 
-    step_fn = make_train_step(cfg, opt_cfg)
     opt_state = adamw.init(dict(model.named_parameters()), opt_cfg)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=2)
@@ -92,7 +109,7 @@ def main(argv=None):
         start_step, tree = ckpt.restore(train_state(model, opt_state), device=dev)
         model.load_state_dict(tree["params"])
         opt_state = tree["opt"]
-        print(f"[ckpt] resumed from step {start_step}")
+        log(f"[ckpt] resumed from step {start_step}")
 
     ctrl = ClusterController(n_workers=1)
     losses = []
@@ -105,25 +122,25 @@ def main(argv=None):
         ctrl.beat(0, step_time=dt)
         losses.append(loss)
         if step % 10 == 0 or step == args.steps - 1:
-            print(f"step {step:4d} loss {loss:.4f} gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({dt*1e3:.0f} ms)")
+            log(f"step {step:4d} loss {loss:.4f} gnorm {float(metrics['grad_norm']):.3f} "
+                f"({dt*1e3:.0f} ms)")
         if (step + 1) % args.ckpt_every == 0:
             path = ckpt.save(step + 1, train_state(model, opt_state))
-            print(f"[ckpt] saved {path.name}")
+            log(f"[ckpt] saved {path.name}")
 
     if not np.isfinite(losses).all():
         raise FloatingPointError(f"non-finite loss: {losses}")
     if len(losses) > 10:
         first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-        print(f"[train] loss {first:.3f} -> {last:.3f} "
-              f"({'improved' if last < first else 'NOT improved'})")
+        log(f"[train] loss {first:.3f} -> {last:.3f} "
+            f"({'improved' if last < first else 'NOT improved'})")
     # demonstrate the paper's feature on the just-used data
     raw = pipe.batch_at(start_step)
     did = int(raw["doc_ids"][0, 0])
     ans = pipe.lineage_of(did)
-    print(f"[lineage] doc {did} traces to "
-          + ", ".join(f"{k}: {len(v)} rows" for k, v in ans.lineage.items())
-          + f" in {ans.seconds*1e3:.1f} ms")
+    log(f"[lineage] doc {did} traces to "
+        + ", ".join(f"{k}: {len(v)} rows" for k, v in ans.lineage.items())
+        + f" in {ans.seconds*1e3:.1f} ms")
     return losses
 
 

@@ -21,6 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..compat import DTensor, Replicate, Shard
+from ..distrib.sharding import (current_rules, local_call, placements,
+                                replicate_like, shard, spec_for)
 from ..kernels.flash_attn.flash_attn import DEFAULT_BK, DEFAULT_BQ
 from ..kernels.flash_attn.ops import mha_flash
 from .config import ArchConfig
@@ -74,7 +77,7 @@ def rope_freqs(cfg: ArchConfig, positions):
     rot = _rot(cfg)
     exps = torch.arange(0, rot, 2, dtype=torch.float32,
                         device=positions.device) / rot
-    inv = 1.0 / (cfg.rope_theta ** exps)
+    inv = replicate_like(positions, 1.0 / (cfg.rope_theta ** exps))
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -104,6 +107,11 @@ class Attention(nn.Module):
     """``wq [d, H, hd]``, ``wk``/``wv [d, Hkv, hd]``, ``wo [H, hd, d]`` and,
     with ``qkv_bias``, ``bq``/``bk``/``bv``."""
 
+    SPECS = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed"),
+             "bq": ("heads", None), "bk": ("kv_heads", None),
+             "bv": ("kv_heads", None)}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
@@ -128,21 +136,43 @@ class Attention(nn.Module):
                 b.zero_()
 
 
-def _proj(x, w):
-    """``einsum('bsd,dhk->bshk')`` as one matmul."""
+def _merged(t, shape, logical, dim: int):
+    """A DTensor ``t`` that is ``shape`` with dims ``dim`` and ``dim + 1``
+    merged, in the layout of ``logical`` over ``shape``: the merged dim is
+    sharded only where its first part (the heads) divides the mesh, so its
+    split into heads, and the backward's, never meets an uneven shard.
+    Plain tensors pass through."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    spec = spec_for(mesh, shape, logical)
+    flat = spec[:dim + 1] + spec[dim + 2:]
+    return t.redistribute(mesh, placements(mesh, flat))
+
+
+def _proj(x, w, heads: str = "heads"):
+    """``einsum('bsd,dhk->bshk')`` as one matmul (``heads`` names the
+    weight's head dim for the sharding rules)."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    w2 = _merged(w.to(x.dtype).reshape(d, h * k), (d, h, k),
+                 ("embed", heads, None), 1)
+    y = _merged(x @ w2, (*x.shape[:-1], h, k), ("batch", "seq", heads, None), 2)
+    return y.unflatten(-1, (h, k))
 
 
 def _out(o, wo):
     """``einsum('bqhd,hdo->bqo')`` as one matmul."""
     h, d, m = wo.shape
-    return o.flatten(-2) @ wo.to(o.dtype).reshape(h * d, m)
+    o2 = _merged(o.flatten(-2), o.shape, ("batch", "seq", "heads", None), 2)
+    wo2 = _merged(wo.to(o.dtype).reshape(h * d, m), wo.shape,
+                  ("heads", None, "embed"), 0)
+    return o2 @ wo2
 
 
 def _qkv(p: Attention, x, cfg: ArchConfig, positions):
     dt = x.dtype
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    q = _proj(x, p.wq)
+    k, v = _proj(x, p.wk, "kv_heads"), _proj(x, p.wv, "kv_heads")
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
@@ -161,12 +191,32 @@ def _expand_kv(k, n_rep: int):
         b, s, h * n_rep, d)
 
 
+def embedding(tokens, table):
+    """``F.embedding``; on DTensors each rank looks its own tokens up in
+    the whole table (redistributed to ``Replicate``)."""
+    return local_call(F.embedding, (tokens, table), (("batch", "seq"), ()),
+                      (tuple(tokens.shape) + (table.shape[1],),
+                       ("batch", "seq", None)))
+
+
 def flash_causal(q, k, v, window: Optional[int] = None):
     """Causal (optionally windowed) attention of ``[B, S, H, D]`` q, k, v
     (H GQA-expanded) through K5's entry point ``mha_flash``.  S is padded
     with zeros after the sequence up to a multiple of the kernel's blocks:
     under the causal mask a padded key lies after every real query, and the
-    padded queries' rows are sliced off."""
+    padded queries' rows are sliced off.
+
+    On DTensors the kernel cannot take the sharded tensor: each rank runs
+    it on its own ``[B_local, S, H_local, D]`` (batch over the data axes,
+    heads over ``model`` where they divide it, else all heads on every
+    rank; the sequence whole), and the plain backward runs on the same
+    shards."""
+    spec = ("batch", None, "heads", None)
+    return local_call(lambda a, b, c: _flash_local(a, b, c, window),
+                      (q, k, v), (spec, spec, spec), (tuple(q.shape), spec))
+
+
+def _flash_local(q, k, v, window: Optional[int] = None):
     S = q.shape[1]
     pad = -S % K5_BLOCK
     if pad:
@@ -229,8 +279,13 @@ def attention(p: Attention, x, cfg: ArchConfig, *, causal: bool = True,
     B, S, _ = x.shape
     k5 = causal and positions is None and kv_mask is None
     if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = replicate_like(x, torch.arange(S, device=x.device)[None])
     q, k, v = _qkv(p, x, cfg, positions)
+    # "seq_q" (None by default) shards queries over positions when the
+    # heads do not divide the model axis
+    seq_name = "seq_q" if current_rules().get("seq_q") else "seq"
+    q = shard(q, "batch", seq_name, "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
     if k5:
@@ -243,7 +298,8 @@ def attention(p: Attention, x, cfg: ArchConfig, *, causal: bool = True,
 def cross_attention(p: Attention, x, kv_src, cfg: ArchConfig):
     """Encoder-decoder cross attention (no RoPE, no mask); long query
     sequences go through the chunked path."""
-    q, k, v = _proj(x, p.wq), _proj(kv_src, p.wk), _proj(kv_src, p.wv)
+    q = _proj(x, p.wq)
+    k, v = _proj(kv_src, p.wk, "kv_heads"), _proj(kv_src, p.wv, "kv_heads")
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
     return _out(_attend(q, k, v, cfg), p.wo)
@@ -258,14 +314,29 @@ def attention_decode(p: Attention, x, cache_k, cache_v, kv_pos,
     absolute position held by each slot after this write (-1 = empty);
     write_slot: the slot of the new token; q_pos: its absolute position.
     The query heads' groups fold into the products, so the cache is read at
-    ``n_kv_heads`` and never expanded."""
-    B = x.shape[0]
-    pos = torch.full((B, 1), q_pos, dtype=torch.long, device=x.device)
-    q, k, v = _qkv(p, x, cfg, pos)
-    cache_k[:, write_slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, write_slot] = v[:, 0].to(cache_v.dtype)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, 1, cfg.n_kv_heads, n_rep, cfg.hd)
+    ``n_kv_heads`` and never expanded.  On DTensors each rank writes the
+    slots and heads it holds, and attends with its own batch rows over the
+    whole cache (gathered over slots, and over heads unless the KV heads
+    divide the model axis)."""
+    pos = torch.full((1, 1), q_pos, dtype=torch.long, device=x.device)
+    q, k, v = _qkv(p, x, cfg, replicate_like(x, pos))
+    write_slot_(cache_k, write_slot, k[:, 0])
+    write_slot_(cache_v, write_slot, v[:, 0])
+    by_heads = isinstance(cache_k, DTensor) and any(
+        pl.is_shard(2) for pl in cache_k.placements)
+    q_lg = ("batch", None, "heads" if by_heads else None, None)
+    c_lg = ("batch", None, "kv_heads" if by_heads else None, None)
+    out = local_call(
+        lambda q, ck, cv, kp: _decode_attend(q, ck, cv, kp, q_pos, cfg),
+        (q, cache_k, cache_v, kv_pos), (q_lg, c_lg, c_lg, ()),
+        (tuple(q.shape), q_lg))
+    return _out(out, p.wo)
+
+
+def _decode_attend(q, cache_k, cache_v, kv_pos, q_pos: int, cfg: ArchConfig):
+    B, _, H, hd = q.shape
+    Hkv = cache_k.shape[2]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, hd)
     scale = 1.0 / math.sqrt(cfg.hd)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg,
                           cache_k.to(q.dtype)).float() * scale
@@ -273,9 +344,45 @@ def attention_decode(p: Attention, x, cache_k, cache_v, kv_pos,
     if cfg.sliding_window is not None:
         mask &= kv_pos > q_pos - cfg.sliding_window
     logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, cache_v.to(x.dtype))
-    return _out(out.reshape(B, 1, cfg.n_heads, cfg.hd), p.wo)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, cache_v.to(q.dtype))
+    return out.reshape(B, 1, H, hd)
+
+
+def local_view(t):
+    """The part of ``t`` this rank holds, as a view that writes through."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def assign_(dst, src) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is first redistributed to
+    ``dst``'s layout and each rank writes its own part."""
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    local_view(dst).copy_(local_view(src))
+
+
+def write_slot_(cache, slot: int, new) -> None:
+    """``cache[:, slot] = new`` (cache [B, S, H, D], new [B, H, D]); on a
+    DTensor cache, by the ranks that hold the slot, each its own rows and
+    heads."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    # the cache's layout without its slot dim
+    want = [Replicate() if pl.is_shard(1) else
+            Shard(pl.dim - 1) if pl.is_shard() and pl.dim > 1 else pl
+            for pl in cache.placements]
+    src = new.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    idx = 0  # which block of slots this rank holds
+    for j, pl in enumerate(cache.placements):
+        if pl.is_shard(1):
+            idx = idx * mesh.size(j) + mesh.get_local_rank(j)
+    lo = idx * local.shape[1]
+    if lo <= slot < lo + local.shape[1]:
+        local[:, slot - lo] = src.to(local.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -284,6 +391,9 @@ def attention_decode(p: Attention, x, cache_k, cache_v, kv_pos,
 
 
 class SwiGLU(nn.Module):
+    SPECS = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -301,6 +411,7 @@ class SwiGLU(nn.Module):
 def swiglu(p: SwiGLU, x):
     dt = x.dtype
     h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+    h = shard(h, "batch", "seq", "mlp")
     return h @ p.w_down.to(dt)
 
 
@@ -310,6 +421,10 @@ def swiglu(p: SwiGLU, x):
 
 
 class MoE(nn.Module):
+    SPECS = {"router": ("embed", None), "w_gate": ("experts", "embed", "mlp"),
+             "w_up": ("experts", "embed", "mlp"),
+             "w_down": ("experts", "mlp", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
@@ -330,7 +445,51 @@ def moe_ffn(p: MoE, x, cfg: ArchConfig):
     """x: [B, S, D] -> top-k expert mixture.  Tokens are processed in groups
     of ``group_size`` with a per-group expert capacity (GShard); a (token,
     k) pair takes the next slot of its expert in (token, k) order, and
-    pairs past the capacity are dropped."""
+    pairs past the capacity are dropped.
+
+    On DTensors (top-k and the capacity scatter have no DTensor rule) each
+    rank runs its own token groups (batch over the data axes) against its
+    slice of the experts' ``mlp`` dim (and of the experts, when a rule
+    shards them), the layout of the reference's two ``shard`` calls here;
+    the output is a partial sum over ``model``.  Where a rank's own tokens
+    do not make whole groups of the global batch (decode, small batches),
+    every rank routes all the tokens, so groups and capacities stay the
+    global ones, and keeps its own rows of the output."""
+    tokens = ("batch", "seq", "embed")
+    whole = not isinstance(x, DTensor) or _local_groups(x, cfg)
+    routed = tokens if whole else (None, "seq", "embed")
+    out = local_call(lambda *a: _moe_local(*a, cfg),
+                     (x, p.router, p.w_gate, p.w_up, p.w_down),
+                     (routed, (), MoE.SPECS["w_gate"], MoE.SPECS["w_up"],
+                      MoE.SPECS["w_down"]),
+                     (tuple(x.shape), routed))
+    if whole:
+        return out
+    mesh = out.device_mesh
+    rows = placements(mesh, spec_for(mesh, x.shape, tokens))
+    return out.redistribute(mesh, [r if r.is_shard() else pl for r, pl
+                                   in zip(rows, out.placements)])
+
+
+def _groups(T: int, group_size: int) -> int:
+    """The tokens in each GShard group (``Tg``) when ``T`` tokens are
+    routed in groups of ``group_size``."""
+    return T // max(T // group_size, 1)
+
+
+def _local_groups(x, cfg: ArchConfig) -> bool:
+    """Whether each rank's batch rows of ``x`` are whole token groups of
+    the global batch, formed as the global batch forms them."""
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    n = math.prod(mesh.size(j) for j, pl in enumerate(
+        placements(mesh, spec_for(mesh, x.shape, ("batch",)))) if pl.is_shard())
+    gs, T = cfg.moe.group_size, B * S
+    tg, tl = _groups(T, gs), T // n
+    return tl % tg == 0 and tl // tg == max(tl // gs, 1)
+
+
+def _moe_local(x, router, w_gate, w_up, w_down, cfg: ArchConfig):
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -340,7 +499,7 @@ def moe_ffn(p: MoE, x, cfg: ArchConfig):
     cap = max(int(math.ceil(m.top_k * Tg / m.num_experts * m.capacity_factor)), 4)
     dt = x.dtype
 
-    logits = (xt @ p.router.to(dt)).float()
+    logits = (xt @ router.to(dt)).float()
     probs = torch.softmax(logits, dim=-1)
     # bf16 router logits tie often; a stable sort takes the lower expert
     # first, as ``lax.top_k`` does
@@ -359,10 +518,13 @@ def moe_ffn(p: MoE, x, cfg: ArchConfig):
     onehot_c = F.one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :cap]
     disp = torch.einsum("gtke,gtkc->gtec", onehot_e, onehot_c)  # [G,Tg,E,C]
     expert_in = torch.einsum("gtec,gtd->gecd", disp, xt)
+    # G (token groups) stays sharded over the data-parallel axes
+    expert_in = shard(expert_in, "batch", "experts", None, "embed")
 
-    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p.w_gate.to(dt)))
-    h = h * torch.einsum("gecd,edf->gecf", expert_in, p.w_up.to(dt))
-    out_e = torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate.to(dt)))
+    h = h * torch.einsum("gecd,edf->gecf", expert_in, w_up.to(dt))
+    h = shard(h, "batch", "experts", None, "mlp")
+    out_e = torch.einsum("gecf,efd->gecd", h, w_down.to(dt))
 
     gated_e = onehot_e * torch.where(keep, gate_vals, 0.0).to(dt)[..., None]
     combine = torch.einsum("gtke,gtkc->gtec", gated_e, onehot_c)

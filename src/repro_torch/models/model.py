@@ -17,10 +17,10 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distrib.sharding import local_call, replicate_like, shard
 from . import layers as L
 from . import ssm as S
 from .config import ArchConfig
@@ -37,9 +37,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch models run on a CUDA device by default "
                            "and none is available; pass device='cpu'")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# the reference stacks these layer lists on a leading [n_layers] dim
+STACKED = ("layers", "encoder", "decoder")
 
 
 def _is_slstm(cfg: ArchConfig, i: int) -> bool:
@@ -59,6 +63,8 @@ def cache_size(cfg: ArchConfig, seq_len: int) -> int:
 
 class Block(nn.Module):
     """One decoder block (``cross``: the encoder-decoder's cross attention)."""
+
+    SPECS = {"norm1": ("embed",), "norm2": ("embed",), "norm_cross": ("embed",)}
 
     def __init__(self, cfg: ArchConfig, cross: bool = False, **kw):
         super().__init__()
@@ -102,6 +108,8 @@ class Block(nn.Module):
 
 
 class XLSTMBlock(nn.Module):
+    SPECS = {"norm1": ("embed",)}
+
     def __init__(self, cfg: ArchConfig, slstm: bool, **kw):
         super().__init__()
         self.norm1 = L.param((cfg.d_model,), **L.float32(kw))
@@ -141,6 +149,9 @@ class Model(nn.Module):
     :func:`params_from_numpy` loads a reference tree.  Activations run in
     ``cfg.dtype``."""
 
+    SPECS = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+             "lm_head": ("embed", "vocab")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
@@ -164,6 +175,19 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def logical_specs(self) -> Dict[str, tuple]:
+        """The reference's logical axis names of every weight (the second
+        value of its ``M.init``), keyed like ``named_parameters()``.  A
+        layer of a stacked stack (``layers``, ``encoder``, ``decoder``)
+        carries the stacked leaf's spec, its leading layer dim (None)
+        included."""
+        out = {}
+        for name, _ in self.named_parameters():
+            path, _, leaf = name.rpartition(".")
+            spec = (self.get_submodule(path) if path else self).SPECS[leaf]
+            out[name] = (None,) + spec if name.split(".")[0] in STACKED else spec
+        return out
 
     @classmethod
     @torch.no_grad()
@@ -189,7 +213,8 @@ class Model(nn.Module):
     # ---- forward pieces ---------------------------------------------------- #
 
     def _embed(self, tokens):
-        return F.embedding(tokens, self.embed).to(_dt(self.cfg))
+        x = L.embedding(tokens, self.embed).to(_dt(self.cfg))
+        return shard(x, "batch", "seq", "embed")
 
     def _inputs_to_hidden(self, batch: Mapping[str, torch.Tensor]):
         """Map (modality-stubbed) inputs to the initial hidden sequence."""
@@ -201,9 +226,10 @@ class Model(nn.Module):
     def _logits(self, x):
         cfg = self.cfg
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        logits = x @ self.lm_head.to(x.dtype)
+        logits = shard(x @ self.lm_head.to(x.dtype), "batch", "seq", "vocab")
         if cfg.padded_vocab != cfg.vocab:  # mask the padded tail
-            logits[..., cfg.vocab:] = -1e30
+            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+            logits = logits.masked_fill(replicate_like(logits, pad), -1e30)
         return logits
 
     def _hidden(self, batch: Mapping[str, torch.Tensor], remat: bool = False):
@@ -217,18 +243,23 @@ class Model(nn.Module):
                 return checkpoint(fn, *args, use_reentrant=False, **kw)
             return fn(*args, **kw)
 
-        if cfg.encdec:
-            enc = batch["frames"].to(_dt(cfg))
-            for blk in self.encoder:
-                enc = run(blk, enc, cfg, causal=False)
-            x = self._embed(batch["tokens"])
-            for blk in self.decoder:
-                x = run(blk.forward_decdec, x, enc, cfg)
+        def stack(blocks, x, *args, **kw):  # the reference's _run_stack
+            x = shard(x, "batch", "seq_act", "embed")
+            for fn in blocks:
+                x = shard(run(fn, x, *args, **kw), "batch", "seq_act", "embed")
             return x
+
+        if cfg.encdec:
+            enc = shard(batch["frames"].to(_dt(cfg)), "batch", "seq", "embed")
+            enc = stack(self.encoder, enc, cfg, causal=False)
+            x = self._embed(batch["tokens"])
+            return stack([b.forward_decdec for b in self.decoder], x, enc, cfg)
         x = self._inputs_to_hidden(batch)
-        for blk in (self.blocks if cfg.xlstm else self.layers):
-            x = run(blk, x, cfg)
-        return x
+        if cfg.xlstm:
+            for blk in self.blocks:
+                x = run(blk, x, cfg)
+            return x
+        return stack(self.layers, x, cfg)
 
     # ---- public API: loss / prefill / decode -------------------------------- #
 
@@ -291,7 +322,7 @@ class Model(nn.Module):
             return self._logits(x), state
 
         slot = pos % state["kv_pos"].shape[0]
-        state["kv_pos"][slot] = pos
+        L.local_view(state["kv_pos"])[slot] = pos  # replicated
         stack = self.decoder if cfg.encdec else self.layers
         for i, blk in enumerate(stack):
             hn = L.rmsnorm(x, blk.norm1, cfg.norm_eps)
@@ -299,8 +330,8 @@ class Model(nn.Module):
                                      state["cache_v"][i], state["kv_pos"],
                                      slot, pos, cfg)
             if cfg.parallel_ssm:
-                y, state["ssm"][i] = S.mamba_decode(blk.ssm, hn,
-                                                    state["ssm"][i], cfg)
+                y, ssm = S.mamba_decode(blk.ssm, hn, state["ssm"][i], cfg)
+                L.assign_(state["ssm"][i], ssm)
                 att = 0.5 * (att + y)
             x = x + att
             if cfg.encdec:
@@ -311,12 +342,20 @@ class Model(nn.Module):
         return self._logits(x), state
 
 
-def _xent(logits, labels):
-    """Stable cross-entropy in float32; mean over positions."""
+def _nll(logits, labels):
+    """Stable negative log-likelihoods in float32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def _xent(logits, labels):
+    """Cross-entropy, mean over positions.  On DTensors each rank sums its
+    own rows' losses over the whole vocabulary (the logits redistributed
+    to ``Replicate`` over ``vocab``): a partial sum over the data axes."""
+    total = local_call(lambda lg, lb: _nll(lg, lb).sum(), (logits, labels),
+                       (("batch", None, None), ("batch", None)), ((), ()))
+    return total / labels.numel()
 
 
 # --------------------------------------------------------------------------- #

@@ -8,11 +8,13 @@ the carry (SSM state, matrix memory) is the only state.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distrib.sharding import local_call
 from .config import ArchConfig
 from .layers import _proj, dense_init_, float32, param
 
@@ -21,12 +23,49 @@ def _mm(x, w):
     return x @ w.to(x.dtype)
 
 
+def _on_shards(fn, p: nn.Module, x, cfg: ArchConfig, state=None):
+    """``fn(p, x, cfg)``, or ``fn(p, x, state, cfg) -> (y, state)``, of a
+    recurrent block.  On DTensors (the loops over time have no DTensor
+    rule) each rank runs its own batch rows (the data axes) with the
+    block's weights and the state redistributed to ``Replicate`` over the
+    other axes."""
+    names = [n for n, _ in p.named_parameters(recurse=False)]
+    ws = [getattr(p, n) for n in names]
+    act = ("batch", "seq", "embed")
+    if state is None:
+        def local(x, *ws):
+            return fn(SimpleNamespace(**dict(zip(names, ws))), x, cfg)
+
+        return local_call(local, (x, *ws), (act,) + ((),) * len(ws),
+                          (tuple(x.shape), act))
+    st = list(state) if isinstance(state, tuple) else [state]
+    n = len(st)
+
+    def local(x, *rest):
+        s = tuple(rest[:n]) if isinstance(state, tuple) else rest[0]
+        y, s = fn(SimpleNamespace(**dict(zip(names, rest[n:]))), x, s, cfg)
+        return (y, *(s if isinstance(state, tuple) else (s,)))
+
+    def rows(t):
+        return ("batch",) + (None,) * (t.ndim - 1)
+
+    y, *new = local_call(local, (x, *st, *ws),
+                         (act, *map(rows, st)) + ((),) * len(ws),
+                         [(tuple(x.shape), act)]
+                         + [(tuple(t.shape), rows(t)) for t in st])
+    return y, (tuple(new) if isinstance(state, tuple) else new[0])
+
+
 # --------------------------------------------------------------------------- #
 # Mamba-style selective SSM
 # --------------------------------------------------------------------------- #
 
 
 class Mamba(nn.Module):
+    SPECS = {"w_in": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+             "w_bc": ("mlp", None), "w_dt": ("mlp", "mlp"),
+             "A_log": ("mlp", "state"), "D": ("mlp",), "w_out": ("mlp", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         m = cfg.ssm
@@ -76,6 +115,10 @@ def _mamba_inputs(p: Mamba, x, cfg: ArchConfig):
 def mamba_forward(p: Mamba, x, cfg: ArchConfig):
     """x: [B, S, D] -> [B, S, D] (prefill).  The decay and input terms of
     every step are formed at once; the loop carries ``h = decay * h + u``."""
+    return _on_shards(_mamba_forward, p, x, cfg)
+
+
+def _mamba_forward(p, x, cfg: ArchConfig):
     xs, z, B_, C_, dt = _mamba_inputs(p, x, cfg)
     A = -torch.exp(p.A_log)  # [dI, N]
     # time-major [S, B, dI, N]
@@ -103,6 +146,10 @@ def mamba_forward(p: Mamba, x, cfg: ArchConfig):
 def mamba_decode(p: Mamba, x, state, cfg: ArchConfig):
     """One token: x [B, 1, D], state [B, dI, N] -> (y [B, 1, D], new state).
     The causal conv sees this one step only, as in the reference."""
+    return _on_shards(_mamba_decode, p, x, cfg, state)
+
+
+def _mamba_decode(p, x, state, cfg: ArchConfig):
     xs, z, B_, C_, dt = _mamba_inputs(p, x, cfg)
     A = -torch.exp(p.A_log)
     x_t, b_t, c_t, dt_t = xs[:, 0], B_[:, 0], C_[:, 0], dt[:, 0]
@@ -120,6 +167,11 @@ def mamba_decode(p: Mamba, x, state, cfg: ArchConfig):
 
 
 class MLSTM(nn.Module):
+    SPECS = {"w_up": ("embed", "mlp"), "wq": ("mlp", "heads", None),
+             "wk": ("mlp", "heads", None), "wv": ("mlp", "heads", None),
+             "w_if": ("mlp", None), "w_o": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         H, d = cfg.n_heads, cfg.d_model
@@ -183,6 +235,10 @@ def mlstm_state(cfg: ArchConfig, batch: int, device=None):
 
 def mlstm_forward(p: MLSTM, x, cfg: ArchConfig):
     """Exponential-gated matrix memory, a loop over the sequence."""
+    return _on_shards(_mlstm_forward, p, x, cfg)
+
+
+def _mlstm_forward(p, x, cfg: ArchConfig):
     q, k, v, log_i, log_f, og = _mlstm_qkv(p, x, cfg)
     B, S, H, dh = q.shape
     state = mlstm_state(cfg, B, x.device)
@@ -196,6 +252,10 @@ def mlstm_forward(p: MLSTM, x, cfg: ArchConfig):
 
 
 def mlstm_decode(p: MLSTM, x, state, cfg: ArchConfig):
+    return _on_shards(_mlstm_decode, p, x, cfg, state)
+
+
+def _mlstm_decode(p, x, state, cfg: ArchConfig):
     q, k, v, log_i, log_f, og = _mlstm_qkv(p, x, cfg)
     state, y = _mlstm_step(state, *(a[:, 0] for a in (q, k, v, log_i, log_f)))
     B, _, H, dh = q.shape
@@ -209,6 +269,9 @@ def mlstm_decode(p: MLSTM, x, state, cfg: ArchConfig):
 
 
 class SLSTM(nn.Module):
+    SPECS = {"w_gates": ("embed", "mlp"), "r_gates": ("embed", "mlp"),
+             "w_down": ("embed", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
@@ -247,6 +310,10 @@ def slstm_state(cfg: ArchConfig, batch: int, device=None):
 
 
 def slstm_forward(p: SLSTM, x, cfg: ArchConfig):
+    return _on_shards(_slstm_forward, p, x, cfg)
+
+
+def _slstm_forward(p, x, cfg: ArchConfig):
     gx = _mm(x, p.w_gates).float()
     state = slstm_state(cfg, x.shape[0], x.device)
     hs = []
@@ -257,6 +324,10 @@ def slstm_forward(p: SLSTM, x, cfg: ArchConfig):
 
 
 def slstm_decode(p: SLSTM, x, state, cfg: ArchConfig):
+    return _on_shards(_slstm_decode, p, x, cfg, state)
+
+
+def _slstm_decode(p, x, state, cfg: ArchConfig):
     gx = _mm(x, p.w_gates).float()[:, 0]
     state = _slstm_step(p, state, gx, x.dtype, cfg.d_model)
     return _mm(state[3][:, None, :].to(x.dtype), p.w_down), state

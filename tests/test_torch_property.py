@@ -140,3 +140,45 @@ def test_every_config_on_a_fixed_udf_pipeline(config):
            ["groupby_m", "sum"]]
     for row_seed in range(3):
         forced(check_both)(cat_desc, ops, row_seed, config)
+
+
+def test_shared_union_subtree_keeps_every_stage_column():
+    """The input ``tests/test_property.py::test_udf_algebra_differential``
+    replays: both union branches read one materialized node, whose column
+    projection kept only one branch's columns, so ``query`` raised
+    ``KeyError: 'a'`` in ``_stage_select``.  The port keeps the union of
+    the columns its stages need and answers as its eager oracle does; the
+    reference still raises on it."""
+    cat_desc = {"r": {"idx": [0, 1, 2, 3], "a": [0] * 4, "b": [0] * 4,
+                      "v": [0] * 4},
+                "s": {"c": [0] * 3, "w": [0] * 3}}
+    ops = [["window", 2], ["rowtransform", 0], ["map_udf", 2], ["union", 5, 5],
+           ["groupby", "sum"]]
+    build_catalog, build_plan = _port_builders()
+    cat, plan = build_catalog(cat_desc), build_plan(ops)
+    res = Executor(cat, device="cpu").run(plan)
+    values = {c: res.output.cols[c][0] for c in res.output.columns}
+    want = sets(oracle_lineage_for_values(cat, plan, values))
+    assert want == {"r": {0, 1, 2, 3}}
+    pt = PredTrace(cat, plan, device="cpu")
+    pt.infer(stats=res.stats)
+    pt.run()
+    try:
+        ans = pt.query(0)
+        assert sets(ans.lineage) == want and ans.all_precise()
+        (batched,) = pt.query_batch([0])
+        assert sets(batched.lineage) == want
+        for superset in (pt.query_naive(0), pt.query_iterative(0)):
+            got = sets(superset.lineage)
+            assert all(want[t] <= got.get(t, set()) for t in want)
+    finally:
+        pt.close()
+
+    ref_cat = pipeline_cases.build_catalog(cat_desc)
+    ref_plan = pipeline_cases.build_plan(ops)
+    ref_pt = RefPredTrace(ref_cat, ref_plan)
+    ref_pt.infer(stats=RefExecutor(ref_cat).run(ref_plan).stats)
+    ref_pt.run()
+    with pytest.raises(KeyError):
+        ref_pt.query(0)
+    ref_pt.close()
