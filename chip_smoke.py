@@ -114,7 +114,13 @@ Phases, each printing one JSON line:
                  tokens, 32 generated each.  hymba-1.5b (32 layers, window
                  2,048): prefill at S = 4,096 (its launches kept and
                  replayed the same way), timed once after a warm-up, and
-                 at S = 512.
+                 at S = 512.  phi-3-vision-4.2b (32 layers, d 3,072, head
+                 dim 96; 256 patch embeddings before 3,840 tokens): prefill
+                 at S = 4,096, replayed the same way.  The smoke llama
+                 (``smoke_config``: 4 layers, head dim 32): a prefill at
+                 S = 4,096 and one train step at B = 8, S = 4,096, its
+                 first K5 launch replayed.  ``--only-lm`` runs phases 1, 2
+                 and 10 alone.
 11. train      — after phase 10, with its models freed and every launch
                  count at 0: the training path at full width and depth.
                  qwen2-0.5b (``launch/train``'s default arch, 24 layers,
@@ -140,7 +146,7 @@ Phases, each printing one JSON line:
                  a checkpoint after the sixth.  Then the warm-up step's first K5
                  launch against the plain version, timed beside SDPA, with
                  the plain backward's time.  ``--only-train`` runs
-                 phases 1, 2 and 11 alone.
+                 phases 1, 2, 11 and 13 alone.
 12. mesh       — after phase 11, with its models freed and every launch
                  count at 0: the same paths sharded over a ``DeviceMesh``
                  (``make_host_mesh(data=WORLD_SIZE, model=1)``, one NCCL
@@ -164,9 +170,18 @@ Phases, each printing one JSON line:
                  against the plain version.  Kept K5 launches are replayed
                  as in phase 11.  ``--only-mesh`` runs phases 1, 2 and 12
                  alone.
+13. bound      — after phase 12, its process group closed: the dry run
+                 (``launch/dryrun.py``) traces phase 11's step on fake
+                 tensors over a one-rank mesh of a fake process group,
+                 nothing on the card, and prints its compute, memory and
+                 collective terms at the H100's constants
+                 (``launch/roofline.py``), the dominant term and the bound,
+                 beside phase 11's measured step and the bound's share of
+                 it, with the trace's seconds.
 
 Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5, 11 and
-12's, K5's phases 10, 11 and 12's), the raw ``nvidia-smi`` line, and the
+12's, K5's phases 10, 11 and 12's; K5's ``head_dim_cases`` give the head
+dims 96 and 32), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
 script refuses to run without a CUDA device.  It imports neither ``jax`` nor
 the reference package.
@@ -1516,13 +1531,6 @@ def all_launches() -> dict:
             **flash_attn.LAUNCHES}
 
 
-def attention_pairs(s: int, window) -> int:
-    """Unmasked (query, key) pairs of causal attention over ``s`` positions,
-    with keys more than ``window - 1`` behind the query masked."""
-    q = np.arange(s, dtype=np.int64)
-    return int(np.minimum(q + 1, window or s).sum())
-
-
 def entry_inputs(db, seed: int = 6):
     """The phase's inputs: lineitem's q6 slab, its order keys and three key
     sets, and per attention case q, k, v ``[1, S, H, D]`` on the card."""
@@ -1659,8 +1667,8 @@ def phase_entry_kernels(inp, secs) -> dict:
 
     from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT,
                                                 attention_bf16_scores,
-                                                attention_ref, flash_attention,
-                                                rms_ratio)
+                                                attention_pairs, attention_ref,
+                                                flash_attention, rms_ratio)
     from repro_torch.kernels.flash_attn.ops import _fold as fold
     from repro_torch.kernels.membership import membership_ref
     from repro_torch.kernels.membership.membership import launch_sorted
@@ -1807,6 +1815,11 @@ DECODE_CHECK_S = 1024  # prompt of the prefill-against-decode check
 DECODE_RMS_LIMIT = 5e-2
 LM_SERVE_ARGS = ["--arch", "llama3.2-3b", "--batch", "4", "--prompt-len",
                  "128", "--gen", "32"]
+# head dim 96: phi-3-vision-4.2b at full width (32 layers, d 3,072, 32
+# heads); head dim 32: every smoke configuration's, on the card at S = 4,096
+PHI_ARCH = "phi-3-vision-4.2b"
+SMOKE_ARCH = "llama3.2-3b"
+SMOKE_TRAIN_B = 8
 
 
 def keep_k5_calls(indices) -> tuple:
@@ -1893,8 +1906,9 @@ def replay_k5(name, layer, kept, smi, path: str = "prefill",
     elements; kernel, plain and SDPA times on the same operands."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_ref,
-                                                flash_attention, rms_ratio)
+    from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_pairs,
+                                                attention_ref, flash_attention,
+                                                rms_ratio)
 
     q, k, v, window, got = kept
     want = attention_ref(q, k, v, window=window)
@@ -1978,11 +1992,28 @@ def prefill_flops(model, s: int) -> int:
     """2 x non-embedding parameters x tokens + 2 x the causal attention
     products (QK^T and PV, 2 H D multiply-adds per unmasked pair) of every
     layer."""
+    from repro_torch.kernels.flash_attn import attention_pairs
+
     cfg = model.cfg
     n = sum(p.numel() for name, p in model.named_parameters()
             if name not in ("embed", "lm_head"))
     pairs = attention_pairs(s, cfg.sliding_window)
     return 2 * n * s + 2 * cfg.n_layers * 2 * cfg.n_heads * cfg.hd * pairs
+
+
+def prompt_batch(cfg, s: int, gen) -> dict:
+    """One prompt of ``s`` positions on the card: random tokens and, for a
+    vision configuration, its ``n_patches`` patch embeddings first (the
+    stub frontend's input), so the sequence is ``s`` long either way."""
+    vision = cfg.frontend == "vision"
+    text = s - cfg.n_patches if vision else s
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, text), generator=gen,
+                                     device="cuda")}
+    if vision:
+        batch["patches"] = torch.randn((1, cfg.n_patches, cfg.d_model),
+                                       generator=gen, device="cuda").to(
+                                           torch.bfloat16)
+    return batch
 
 
 def lm_model(name: str, smi: str):
@@ -2017,8 +2048,7 @@ def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None,
     L = cfg.n_layers
     step = make_prefill_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(10)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (1, s), generator=gen,
-                                     device="cuda")}
+    batch = prompt_batch(cfg, s, gen)
     torch.cuda.reset_peak_memory_stats()
     kept, undo = keep_k5_calls({0, L - 1})
     try:
@@ -2127,6 +2157,51 @@ def lm_serve(smi: str) -> dict:
     return rec
 
 
+def lm_smoke(smi: str) -> dict:
+    """``smoke_config(SMOKE_ARCH)`` (head dim 32) in bf16 on the card: a
+    prefill at B = 1, S = 4,096 (K5 once a layer) and one train step at
+    B = ``SMOKE_TRAIN_B``, S = 4,096, remat on, one microbatch (K5 twice a
+    layer: the forward and remat's recompute), the step's first launch
+    kept for the replay.  Returns the launches, the kept launch and the
+    record."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = smoke_config(SMOKE_ARCH)
+    L = cfg.n_layers
+    model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    logits, pre_s, pre_n = timed_prefill(make_prefill_step(cfg), model,
+                                         prompt_batch(cfg, LM_PREFILL_S, gen))
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=0)
+    opt = adamw.init(dict(model.named_parameters()), opt_cfg)
+    toks = torch.randint(0, cfg.vocab, (SMOKE_TRAIN_B, LM_PREFILL_S),
+                         generator=gen, device="cuda")
+    kept, undo = keep_k5_calls({0})
+    try:
+        opt, m, step_s, step_n = timed_train_step(
+            make_train_step(cfg, opt_cfg), model, opt,
+            {"tokens": toks, "labels": toks})
+    finally:
+        undo()
+    rec = {"phase": "lm_smoke", "model": cfg.name, "head_dim": cfg.hd,
+           "layers": L, "S": LM_PREFILL_S, "prefill_s": pre_s,
+           "prefill_k5_launches": pre_n, "train_B": SMOKE_TRAIN_B,
+           "train_step_s": step_s, "train_k5_launches": step_n,
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "nvidia_smi": smi}
+    emit(rec)
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(
+            logits[..., :cfg.vocab].float()).all():
+        raise AssertionError(f"{cfg.name} prefill: bad logits")
+    if pre_n != L or step_n != 2 * L or not np.isfinite(rec["loss"]):
+        raise AssertionError(f"{cfg.name} on the card: {rec}")
+    del model, opt, logits
+    return {"launches": pre_n + step_n, "kept": kept, "record": rec}
+
+
 def free_card() -> None:
     import gc
 
@@ -2135,15 +2210,18 @@ def free_card() -> None:
 
 
 def phase_lm(smi: str, k5_entry_recs) -> dict:
-    """Phase 10: llama3.2-3b and hymba-1.5b at full width and depth in bf16
-    through the port's serving entry points, K5's launch count at 0 just
-    before and read just after; then the kept launches against the plain
-    version (not counted).  Returns the launches and replay records."""
+    """Phase 10: llama3.2-3b, hymba-1.5b and phi-3-vision-4.2b (head dim
+    96) at full width and depth in bf16 through the port's serving entry
+    points, and a smoke configuration (head dim 32) prefilled and trained
+    one step, K5's launch count at 0 just before and read just after; then
+    the kept launches against the plain version (not counted).  Returns
+    the launches and replay records (``k5_entry_recs``, phase 6's K5
+    records, give llama's K5 share of prefill when there are any)."""
     from repro_torch.kernels import flash_attn
 
     t_phase = time.perf_counter()
-    llama_ms = next(r["ms"] for r in k5_entry_recs
-                    if "llama3.2-3b bfloat16" in r["case"])
+    llama_ms = next((r["ms"] for r in k5_entry_recs or ()
+                     if "llama3.2-3b bfloat16" in r["case"]), None)
     flash_attn.reset_launches()
     model = lm_model("llama3.2-3b", smi)
     llama, kept_llama = lm_prefill(model, LM_PREFILL_S, smi, reps=3,
@@ -2160,17 +2238,25 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
     emit({"phase": "lm_hymba_total", "seconds": time.perf_counter() - t0})
     del model
     free_card()
+    t0 = time.perf_counter()
+    model = lm_model(PHI_ARCH, smi)
+    phi, kept_phi = lm_prefill(model, LM_PREFILL_S, smi, reps=1)
+    del model
+    free_card()
+    smoke = lm_smoke(smi)
+    free_card()
+    emit({"phase": "lm_head_dims_total", "seconds": time.perf_counter() - t0})
     launches = k5_launches()
-    prefills = [llama, hymba, short]
+    prefills = [llama, hymba, short, phi]
     counted = (sum(sum(r["k5_launches_per_call"]) for r in prefills)
-               + check["k5_launches_prefill"])
+               + check["k5_launches_prefill"] + smoke["launches"])
     emit({"phase": "lm_launches", "k5_launches": launches,
           "k5_launches_of_prefill_calls": counted})
     if launches != counted:
         raise AssertionError(f"K5 launched {launches} times in phase 10, its "
                              f"prefill calls account for {counted}")
     replays = []
-    for rec, kept in ((llama, kept_llama), (hymba, kept_hymba)):
+    for rec, kept in ((llama, kept_llama), (hymba, kept_hymba), (phi, kept_phi)):
         mine = [replay_k5(rec["model"], i, kept[i], smi) for i in sorted(kept)]
         emit({"phase": "lm_k5_share", "model": rec["model"], "S": rec["S"],
               "k5_share_of_prefill_replayed":
@@ -2178,12 +2264,17 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
                   r["ms"] for r in mine) * 1e-3 / rec["seconds_median"]})
         replays += mine
         kept.clear()
+    d32 = replay_k5(smoke["record"]["model"], 0, smoke["kept"][0], smi,
+                    path="smoke train step")
+    smoke["kept"].clear()
     free_card()
     emit({"phase": "lm_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
-    return {"launches": launches, "replays": replays,
+    return {"launches": launches, "replays": replays + [d32],
             "per_prefill": {r["model"]: r["k5_launches_per_call"][0]
-                            for r in (llama, hymba)}}
+                            for r in (llama, hymba, phi)},
+            "head_dims": {"d96": next(r for r in replays if r["model"] == PHI_ARCH),
+                          "d32": d32}}
 
 
 # --------------------------------------------------------------------------- #
@@ -2274,6 +2365,8 @@ def train_flops(model, tokens: int, sequences: int) -> int:
     extra forward: 2 x the blocks' parameters x tokens and 1 x the
     attention products; the attention products are 2 x 2 H D per unmasked
     (query, key) pair (QK^T, PV), every layer and sequence."""
+    from repro_torch.kernels.flash_attn import attention_pairs
+
     cfg = model.cfg
     named = dict(model.named_parameters())
     n = sum(p.numel() for k, p in named.items() if k != "embed")
@@ -2591,7 +2684,7 @@ def phase_train(smi: str) -> dict:
     emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
     return {"launches": launches, "replays": replays, "per_step": want,
-            "first_loss": runs[0][1],
+            "first_loss": runs[0][1], "step_s": med, "model_flops": flops,
             "pred_filter": pf_launches, "pred_filter_recs": pf}
 
 
@@ -2977,12 +3070,67 @@ def phase_mesh(smi: str, sf: float, phase11_loss=None) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 13: the dry run's bound of phase 11's step
+# --------------------------------------------------------------------------- #
+
+
+def close_process_group() -> None:
+    """Ends the one-rank process group ``launch/train`` and phase 12's mesh
+    started, if one is running."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def phase_bound(smi: str, train: dict) -> dict:
+    """Phase 13: ``launch/dryrun.py``'s trace of phase 11's step
+    (qwen2-0.5b, B = 8 at S = 4,096, remat, 4 microbatches) on a one-rank
+    mesh of a fake process group, on fake tensors (nothing runs on the
+    card), at the dry run's two analysis depths extrapolated to 24 layers:
+    its compute, memory and collective terms at the H100's constants
+    (``launch/roofline.py``), the bound, and the bound over phase 11's
+    measured step.  Needs no other process group running."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
+    shape = ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train")
+    t0 = time.perf_counter()
+    traced, rf, trace_s = dryrun.trace_cell(
+        cfg, shape, 1, lambda: make_host_mesh(1, 1, device_type="cpu"),
+        depths=dryrun.ANALYSIS_LAYERS)
+    secs = time.perf_counter() - t0
+    rec = {"phase": "bound", "model": TRAIN_ARCH, "B": TRAIN_B, "S": TRAIN_S,
+           "accum_steps": TRAIN_ACCUM, "remat": True, "mesh": {"data": 1, "model": 1},
+           "depths": list(dryrun.ANALYSIS_LAYERS), "compute_s": rf.compute_s,
+           "memory_s": rf.memory_s, "collective_s": rf.collective_s,
+           "dominant": rf.dominant, "bound_s": rf.bound_s, "flops": rf.flops,
+           "bytes_accessed": rf.bytes_accessed,
+           "per_device_bytes": rf.per_device_hbm_bytes,
+           "constants": {"peak_flops": roofline.PEAK_FLOPS,
+                         "hbm_bw": roofline.HBM_BW, "link_bw": roofline.LINK_BW},
+           "measured_step_s": train["step_s"],
+           "bound_over_step": rf.bound_s / train["step_s"],
+           "phase11_model_flops": train["model_flops"],
+           "trace_s": trace_s, "seconds": secs, "nvidia_smi": smi}
+    emit(rec)
+    if not (rf.flops > 0 and rf.bytes_accessed > 0 and 0 < rec["bound_over_step"]):
+        raise AssertionError(f"phase 13: {rec}")
+    return rec
+
+
+# --------------------------------------------------------------------------- #
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the main-path phase")
+    ap.add_argument("--only-lm", action="store_true",
+                    help="phases 1, 2 and 10 alone, and no result line")
     ap.add_argument("--only-train", action="store_true",
-                    help="phases 1, 2 and 11 alone, and no result line")
+                    help="phases 1, 2, 11 and 13 alone, and no result line")
     ap.add_argument("--only-mesh", action="store_true",
                     help="phases 1, 2 and 12 alone, and no result line")
     args = ap.parse_args()
@@ -3009,9 +3157,13 @@ def main() -> None:
     # float32 products of the plain versions stay in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.only_train or args.only_mesh:
-        if args.only_train:
-            phase_train(smi)
+    if args.only_lm or args.only_train or args.only_mesh:
+        if args.only_lm:
+            phase_lm(smi, None)
+        elif args.only_train:
+            train = phase_train(smi)
+            close_process_group()  # launch/train's; phase 13 starts its own
+            phase_bound(smi, train)
         else:
             phase_mesh(smi, args.sf)
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -3040,6 +3192,8 @@ def main() -> None:
     lm = phase_lm(smi, recs["flash_attention"])
     train = phase_train(smi)
     mesh = phase_mesh(smi, args.sf, train["first_loss"])
+    close_process_group()  # phases 11 and 12's; phase 13 starts its own
+    phase_bound(smi, train)
     if any(m in sys.modules for m in ("jax", "repro")):
         raise AssertionError("jax or the reference package was imported")
 
@@ -3089,7 +3243,13 @@ def main() -> None:
                 "mesh_ms": {x["case"]: x["ms"] for x in mesh["replays"]},
                 "train_backward_library_ms": {
                     x["case"]: x["backward_library_ms"] for x in train["replays"]},
-                "entry_ms": {x["case"]: x["ms"] for x in entry_recs}}
+                "entry_ms": {x["case"]: x["ms"] for x in entry_recs},
+                "head_dim_cases": {
+                    k: {f: r[f] for f in ("case", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err", "share_of_limit",
+                                          "rms_ratio")}
+                    for k, r in lm["head_dims"].items()}}
 
     def later_pf(v):  # phases 11 and 12's replayed K1/K2 launches of one variant
         return [r for ph in (train, mesh)

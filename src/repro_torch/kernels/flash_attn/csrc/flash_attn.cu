@@ -43,8 +43,12 @@
 //   shared memory; thread (tr, tc) = (t / 16, t % 16) owns query rows
 //   4tr..4tr+3, the scores of keys tc and tc + 16, its rows' running max m
 //   and sum l (kept alike in all 16 threads of a row group by shuffles), and
-//   the output columns g * 64 + 4tc..4tc+3.  Shared rows are padded by 4
-//   floats, so the float4 reads of a quarter-warp fall on distinct banks.
+//   D / 16 of each row's output columns: float4 chunks g * 64 + 4tc..4tc+3
+//   while 64 columns remain for them, then a float2 chunk of the next 32
+//   columns (2tc, 2tc + 1) and a single column of the last 16, as D needs
+//   (D = 32: one float2; 64: one float4; 96: a float4 and a float2; 128: two
+//   float4).  Shared rows are padded by 4 floats, so the float4 reads of a
+//   quarter-warp fall on distinct banks.
 //
 // Both kernels launch heavy tiles (late queries, most keys) first and skip
 // tiles entirely outside the window, as the TPU kernel skips its blocks.  A
@@ -101,9 +105,15 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         int s_len, int window, float scale) {
+  static_assert(D % 16 == 0, "16 threads share a row: D / 16 columns each");
   constexpr int LD = D + kPad;   // row stride of the Q, K and V tiles
   constexpr int LP = kBK + kPad; // row stride of the P tile
-  constexpr int G = D / 64;      // float4 column groups per thread
+  constexpr int C = D / 16;      // output columns per thread
+  constexpr int G = C / 4;       // its float4 chunks: columns g * 64 + 4tc
+  constexpr int H2 = C % 4 / 2;  // a float2 chunk: columns B2 + 2tc
+  constexpr int H1 = C % 2;      // a single column: B1 + tc
+  constexpr int B2 = 64 * G, B1 = B2 + 32 * H2;
+  static_assert(B1 + 16 * H1 == D, "the chunks cover the row exactly");
   constexpr int V4 = D / 4;      // float4s per row
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
@@ -127,13 +137,14 @@ __global__ void __launch_bounds__(kThreads)
     store4(qs + r * LD + c, x);
   }
 
-  float m[4], l[4], acc[4][4 * G];
+  // acc[i]: the float4 chunks' columns, then the float2's, then the single
+  float m[4], l[4], acc[4][C];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
   const int q_last = min(q0 + kBQ, s_len) - 1;
@@ -203,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
       l[i] = l[i] * alpha + group_sum(p0 + p1);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * G; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
       ps[(4 * tr + i) * LP + tc] = p0;
       ps[(4 * tr + i) * LP + tc + 16] = p1;
     }
@@ -215,10 +226,10 @@ __global__ void __launch_bounds__(kThreads)
       float p[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = ps[(4 * tr + i) * LP + kk];
+      const float* vrow = vs + kk * LD;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + kk * LD + g * 64 + 4 * tc);
+        const float4 vv = *reinterpret_cast<const float4*>(vrow + g * 64 + 4 * tc);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][4 * g + 0] = fmaf(p[i], vv.x, acc[i][4 * g + 0]);
@@ -226,6 +237,19 @@ __global__ void __launch_bounds__(kThreads)
           acc[i][4 * g + 2] = fmaf(p[i], vv.z, acc[i][4 * g + 2]);
           acc[i][4 * g + 3] = fmaf(p[i], vv.w, acc[i][4 * g + 3]);
         }
+      }
+      if constexpr (H2 > 0) {
+        const float2 vv = *reinterpret_cast<const float2*>(vrow + B2 + 2 * tc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * G + 0] = fmaf(p[i], vv.x, acc[i][4 * G + 0]);
+          acc[i][4 * G + 1] = fmaf(p[i], vv.y, acc[i][4 * G + 1]);
+        }
+      }
+      if constexpr (H1 > 0) {
+        const float vv = vrow[B1 + tc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][C - 1] = fmaf(p[i], vv, acc[i][C - 1]);
       }
     }
   }
@@ -235,12 +259,18 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + 4 * tr + i;
     if (row >= s_len) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    float* out = o + head + (int64_t)row * D;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      store4(o + head + (int64_t)row * D + g * 64 + 4 * tc,
+      store4(out + g * 64 + 4 * tc,
              make_float4(acc[i][4 * g + 0] / den, acc[i][4 * g + 1] / den,
                          acc[i][4 * g + 2] / den, acc[i][4 * g + 3] / den));
     }
+    if constexpr (H2 > 0) {
+      *reinterpret_cast<float2*>(out + B2 + 2 * tc) =
+          make_float2(acc[i][4 * G + 0] / den, acc[i][4 * G + 1] / den);
+    }
+    if constexpr (H1 > 0) out[B1 + tc] = acc[i][C - 1] / den;
   }
 }
 
@@ -338,6 +368,7 @@ __global__ void __launch_bounds__(32 * kWarps, 3)
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o, int s_len, int window,
                          float scale_log2) {
+  static_assert(D % 16 == 0, "k-steps of 16 and pairs of 8-column n-tiles");
   constexpr int BQ = 16 * kWarps;  // query rows per CTA
   constexpr int T = 32 * kWarps;
   constexpr int LD = D + kPadH;    // bf16 per shared row
@@ -562,28 +593,36 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int s, int window, float scale, int bf16, cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, bh, s, window, scale, stream)
+              : launch_f32<D>(q, k, v, o, bh, s, window, scale, stream);
+}
+
 }  // namespace
 
 // Launches one forward pass on ``stream``.  Device pointers q, k, v, o
 // [bh, s, d], contiguous, 16-byte aligned, float32 (bf16 = 0) or bf16
-// (bf16 = 1); d is 64 or 128; bh at most 65535; window 0 means none, else
-// keys with kpos <= qpos - window are masked.  Returns the cudaError_t of the
-// launch (0 on success).
+// (bf16 = 1); d is 32, 64, 96 or 128 (the head dims of the repo's
+// configurations: 32 in every smoke configuration, 96 in phi-3-vision-4.2b);
+// bh at most 65535; window 0 means none, else keys with kpos <= qpos -
+// window are masked.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int bh, int s,
                                       int d, int window, float scale, int bf16,
                                       void* stream) {
   if (bh < 0 || bh > 65535 || s < 0 || window < 0 ||
-      (d != 64 && d != 128) || !q || !k || !v || !o || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(o)) {
+      (d != 32 && d != 64 && d != 96 && d != 128) || !q || !k || !v || !o ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return d == 64 ? launch_bf16<64>(q, k, v, o, bh, s, window, scale, st)
-                   : launch_bf16<128>(q, k, v, o, bh, s, window, scale, st);
+  switch (d) {
+    case 32: return launch<32>(q, k, v, o, bh, s, window, scale, bf16, st);
+    case 64: return launch<64>(q, k, v, o, bh, s, window, scale, bf16, st);
+    case 96: return launch<96>(q, k, v, o, bh, s, window, scale, bf16, st);
+    default: return launch<128>(q, k, v, o, bh, s, window, scale, bf16, st);
   }
-  return d == 64 ? launch_f32<64>(q, k, v, o, bh, s, window, scale, st)
-                 : launch_f32<128>(q, k, v, o, bh, s, window, scale, st);
 }

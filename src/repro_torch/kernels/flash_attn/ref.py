@@ -38,6 +38,14 @@ def _probs(q, k, window: Optional[int] = None, score_dtype=torch.float32):
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def attention_pairs(s: int, window: Optional[int] = None) -> int:
+    """Unmasked (query, key) pairs of causal attention over ``s``
+    positions, keys more than ``window - 1`` behind the query masked: the
+    pairs whose scores and P V products a kernel must compute."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def attention_ref(q, k, v, window: Optional[int] = None):
     """q,k,v: [BH, S, D] -> [BH, S, D] in q's dtype."""
     p = _probs(q, k, window)

@@ -125,22 +125,28 @@ def _mamba_forward(p, x, cfg: ArchConfig):
     dt_t = dt.transpose(0, 1)
     decay = torch.exp(dt_t[..., None] * A)
     u = (dt_t * xs.transpose(0, 1).float())[..., None] * B_.transpose(0, 1)[:, :, None, :]
+    hs = _mamba_scan(u, decay)
+    del decay, u
+    ys = torch.einsum("sbdn,sbn->sbd", hs, C_.transpose(0, 1))
+    y = ys.transpose(0, 1).to(x.dtype) + xs * p.D.to(x.dtype)
+    y = y * F.silu(z)
+    return _mm(y, p.w_out)
+
+
+def _mamba_scan(u, decay):
+    """Every ``h_t = decay_t * h_{t-1} + u_t`` of a time-major [S, ...]
+    sequence, from ``h_{-1} = 0``."""
     h = torch.zeros_like(u[0])
     if torch.is_grad_enabled():  # autograd takes no ``out=`` writes
         steps = []
         for t in range(u.shape[0]):
             h = torch.addcmul(u[t], decay[t], h)
             steps.append(h)
-        hs = torch.stack(steps)
-    else:
-        hs = torch.empty_like(u)
-        for t in range(u.shape[0]):
-            h = torch.addcmul(u[t], decay[t], h, out=hs[t])
-    del decay, u
-    ys = torch.einsum("sbdn,sbn->sbd", hs, C_.transpose(0, 1))
-    y = ys.transpose(0, 1).to(x.dtype) + xs * p.D.to(x.dtype)
-    y = y * F.silu(z)
-    return _mm(y, p.w_out)
+        return torch.stack(steps)
+    hs = torch.empty_like(u)
+    for t in range(u.shape[0]):
+        h = torch.addcmul(u[t], decay[t], h, out=hs[t])
+    return hs
 
 
 def mamba_decode(p: Mamba, x, state, cfg: ArchConfig):
@@ -241,14 +247,19 @@ def mlstm_forward(p: MLSTM, x, cfg: ArchConfig):
 def _mlstm_forward(p, x, cfg: ArchConfig):
     q, k, v, log_i, log_f, og = _mlstm_qkv(p, x, cfg)
     B, S, H, dh = q.shape
-    state = mlstm_state(cfg, B, x.device)
+    ys = _mlstm_scan(mlstm_state(cfg, B, x.device), q, k, v, log_i, log_f)
+    y = ys.reshape(B, S, H * dh).to(x.dtype) * og
+    return _mm(y, p.w_down)
+
+
+def _mlstm_scan(state, q, k, v, log_i, log_f):
+    """The matrix memory's outputs [B, S, H, dh], one step a position."""
     ys = []
-    for t in range(S):
+    for t in range(q.shape[1]):
         state, y = _mlstm_step(state, q[:, t], k[:, t], v[:, t], log_i[:, t],
                                log_f[:, t])
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, H * dh).to(x.dtype) * og
-    return _mm(y, p.w_down)
+    return torch.stack(ys, dim=1)
 
 
 def mlstm_decode(p: MLSTM, x, state, cfg: ArchConfig):
@@ -315,12 +326,18 @@ def slstm_forward(p: SLSTM, x, cfg: ArchConfig):
 
 def _slstm_forward(p, x, cfg: ArchConfig):
     gx = _mm(x, p.w_gates).float()
-    state = slstm_state(cfg, x.shape[0], x.device)
+    hs = _slstm_scan(p, slstm_state(cfg, x.shape[0], x.device), gx, x.dtype,
+                     cfg.d_model)
+    return _mm(hs.to(x.dtype), p.w_down)
+
+
+def _slstm_scan(p, state, gx, dt_, d: int):
+    """The hidden states [B, S, d], one step a position."""
     hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_step(p, state, gx[:, t], x.dtype, cfg.d_model)
+    for t in range(gx.shape[1]):
+        state = _slstm_step(p, state, gx[:, t], dt_, d)
         hs.append(state[3])
-    return _mm(torch.stack(hs, dim=1).to(x.dtype), p.w_down)
+    return torch.stack(hs, dim=1)
 
 
 def slstm_decode(p: SLSTM, x, state, cfg: ArchConfig):

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import inspect
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -363,7 +364,9 @@ def _as_both(x: np.ndarray, dtype: str):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,d,window", [(256, 64, None), (512, 128, None),
-                                        (384, 64, 128)])
+                                        (384, 64, 128), (256, 32, None),
+                                        (384, 32, 128), (256, 96, None),
+                                        (384, 96, 128)])
 def test_flash_attention_sweep(s, d, window, dtype):
     from repro.kernels.flash_attn import flash_attention as ref_flash
 
@@ -395,11 +398,12 @@ def test_mha_flash_layout(window):
                                want, rtol=2e-5, atol=2e-5)
 
 
-# the shapes the bf16 limit is checked at, on the CPU and on the card: both
-# head dims, S ragged against the kernel's 64-row tiles (288) or not, and
-# windows narrower than a tile, so that rows meet fully masked tiles first
-LIMIT_SHAPES = [(s, d, w) for d in (64, 128) for s in (64, 288, 384, 1024)
-                for w in (None, 40, 100)]
+# the shapes the bf16 limit is checked at, on the CPU and on the card: every
+# head dim the kernel is built for, S ragged against the kernel's 64-row
+# tiles (288) or not, and windows narrower than a tile, so that rows meet
+# fully masked tiles first
+LIMIT_SHAPES = [(s, d, w) for d in (32, 64, 96, 128)
+                for s in (64, 288, 384, 1024) for w in (None, 40, 100)]
 
 
 def _bf16_inputs(seed: int, s: int, d: int, bh: int = 2):
@@ -465,6 +469,21 @@ def test_attention_limit_float32():
     want = attention_ref(q, k, v, window=40)
     torch.testing.assert_close(attention_limit(q, k, v, want, window=40),
                                2e-5 + 2e-5 * want.abs(), rtol=0, atol=0)
+
+
+def test_head_dims_match_kernel_source():
+    """The wrapper's head dims are the C launcher's guard and dispatch."""
+    from repro_torch.kernels.flash_attn.flash_attn import HEAD_DIMS
+
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/"
+           "flash_attn/csrc/flash_attn.cu").read_text()
+    launcher = src[src.index('extern "C" int flash_attention_launch'):]
+    guard = launcher[:launcher.index("cudaErrorInvalidValue")]
+    assert tuple(map(int, re.findall(r"d != (\d+)", guard))) == HEAD_DIMS
+    cases = re.findall(r"case (\d+): return launch<(\d+)>", launcher)
+    assert all(a == b for a, b in cases)
+    default = re.findall(r"default: return launch<(\d+)>", launcher)
+    assert tuple(int(a) for a, _ in cases) + tuple(map(int, default)) == HEAD_DIMS
 
 
 def test_flash_attention_rejects_unpadded_seq():
@@ -539,13 +558,14 @@ def test_cuda_membership_matches_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
-    """Both head dims, with and without a window, and an S that is not a
+    """Every head dim, with and without a window, and an S that is not a
     multiple of the kernel's 64-row tile (bq = bk = 32 on the call)."""
     # the plain version's float32 products stay in float32 (no TF32)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(802)
     for s, d, window in ((256, 64, None), (384, 128, None), (512, 64, 100),
-                         (288, 128, 40)):
+                         (288, 128, 40), (256, 32, None), (288, 32, 40),
+                         (384, 96, None), (512, 96, 100)):
         q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d)).astype(
             np.float32)).to(cuda_device, getattr(torch, dtype))
             for _ in range(3))
@@ -582,6 +602,19 @@ def test_cuda_flash_attention_bf16_within_limit(cuda_device, s, d, window,
     err = (got.float() - want.float()).abs()
     assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
     assert rms_ratio(got, want) <= BF16_RMS_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 48, 80, 256])
+def test_cuda_flash_attention_rejects_other_head_dims(cuda_device, d, dtype):
+    """A head dim the kernel is not built for raises on CUDA tensors, with
+    no launch and no fallback to the plain version."""
+    q = torch.zeros((2, 128, d), dtype=getattr(torch, dtype), device=cuda_device)
+    before = FA_LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    assert FA_LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.cuda

@@ -220,7 +220,7 @@ def _card_and_cpu(arch, dtype, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
 def test_cuda_prefill_launches_k5_per_layer(cuda_device, hd, dtype,
                                             monkeypatch):
     """Two layers, S = 200 (padded to 256): one K5 launch a layer, each
@@ -273,11 +273,37 @@ def test_cuda_windowed_prefill_matches_decode(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_head_dim_96_raises(cuda_device):
-    """phi-3-vision-4.2b's head dim 96 is not one the kernel is built for:
-    its prefill raises on the card instead of falling back."""
-    _, card = _card_and_cpu("phi-3-vision-4.2b", "bfloat16", head_dim=96,
-                            d_model=384, n_layers=1)
-    b = batch(card.cfg, 1, 16, seed=10)
-    with pytest.raises(ValueError, match="head dim"):
-        card.prefill(to_torch(b, cuda_device))
+@pytest.mark.parametrize("arch,hd", [("phi-3-vision-4.2b", 96),
+                                     ("llama3.2-3b", 32)])
+def test_cuda_head_dims_prefill_matches_cpu(cuda_device, arch, hd,
+                                            monkeypatch):
+    """phi-3-vision-4.2b's head dim 96 and the smoke configs' 32 run K5 on
+    the card (one launch a layer, each within ``attention_limit`` and
+    ``BF16_RMS_LIMIT`` of the plain version on its operands), and the bf16
+    logits match the CPU port's at the reference's bf16 tolerance."""
+    from repro_torch.kernels.flash_attn import BF16_RMS_LIMIT, ops, rms_ratio
+
+    seen = []
+    real = ops.flash_attention
+
+    def keep(q, k, v, window=None, **kw):
+        out = real(q, k, v, window=window, **kw)
+        seen.append((q, k, v, window, out))
+        return out
+
+    monkeypatch.setattr(ops, "flash_attention", keep)
+    cpu, card = _card_and_cpu(arch, "bfloat16", head_dim=hd, d_model=4 * hd,
+                              n_layers=2)
+    b = batch(cpu.cfg, 1, 200, seed=10)
+    flash_attn.reset_launches()
+    got = card.prefill(to_torch(b, cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attn.LAUNCHES["flash_attention"] == 2 == len(seen)
+    for q, k, v, window, out in seen:
+        assert q.shape[-1] == hd
+        want = attention_ref(q, k, v, window)
+        assert ((out.float() - want.float()).abs()
+                <= attention_limit(q, k, v, want, window)).all()
+        assert rms_ratio(out, want) <= BF16_RMS_LIMIT
+    np.testing.assert_allclose(f32(got), f32(cpu.prefill(to_torch(b))),
+                               rtol=5e-2, atol=5e-2)

@@ -260,17 +260,19 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_train_step_k5_gradients(cuda_device, monkeypatch):
-    """One train step of a 2-layer qwen2-shaped model (head dim 64) in
-    float32 on the card: two K5 launches (one a layer, remat off), and
-    every gradient within 1e-3 RMS of the plain route's (TF32 off; the
-    kernel's float32 is within 2e-5 of the plain version per element)."""
+@pytest.mark.parametrize("hd", [32, 64])
+def test_cuda_train_step_k5_gradients(cuda_device, hd, monkeypatch):
+    """One train step of a 2-layer qwen2-shaped model (head dim 32, the
+    smoke configs', or 64, qwen2's) in float32 on the card: two K5 launches
+    (one a layer, remat off), and every gradient within 1e-3 RMS of the
+    plain route's (TF32 off; the kernel's float32 is within 2e-5 of the
+    plain version per element)."""
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.launch.steps import make_train_step
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cpu = port_model("qwen2-0.5b", "cpu", "float32", n_layers=2, head_dim=64,
-                     d_model=256)
+    cpu = port_model("qwen2-0.5b", "cpu", "float32", n_layers=2, head_dim=hd,
+                     d_model=4 * hd)
     card = Model(cpu.cfg, cuda_device)
     card.load_state_dict(cpu.state_dict())
     b = to_torch(batch(cpu.cfg, 2, 256, seed=8), cuda_device)
