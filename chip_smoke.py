@@ -47,7 +47,17 @@ Phases, each printing one JSON line:
                  per case; K5's lines give the worst and median share of
                  the per-element limit and RMS(err) / RMS(want), held in
                  bf16 to ``BF16_RMS_LIMIT``, which a control that rounds
-                 the scores to bf16 must fail.
+                 the scores to bf16 must fail.  K5's backward kernel on
+                 each attention case's operands (o and lse from the
+                 forward kernel, each first held to its plain version:
+                 lse within 2e-5 (1 + |lse|) of ``attention_lse_ref``, the
+                 float32 o unrounded within ``attention_limit``; a seeded
+                 dO) against ``attention_bwd_ref``:
+                 float32 within ``attention_bwd_limit`` per element, bf16
+                 each of dq, dk, dv within ``BWD_BF16_RMS_LIMIT``, which a
+                 control that rounds the scores must exceed; bit-equal
+                 over two runs; timed beside the plain version, SDPA's
+                 backward and its bound (10 D flops per unmasked pair).
 7. serve       — run between phases 5 and 6 on phase 5's catalog: q3 and
                  q12 through ``LineageService`` (``launch/lineage_serve.py``'s
                  workload: 4 clients, 64 requests in pages of 16, Zipf 1.5
@@ -118,9 +128,11 @@ Phases, each printing one JSON line:
                  dim 96; 256 patch embeddings before 3,840 tokens): prefill
                  at S = 4,096, replayed the same way.  The smoke llama
                  (``smoke_config``: 4 layers, head dim 32): a prefill at
-                 S = 4,096 and one train step at B = 8, S = 4,096, its
-                 first K5 launch replayed.  ``--only-lm`` runs phases 1, 2
-                 and 10 alone.
+                 S = 4,096 and one train step at B = 8, S = 4,096 (4 K5
+                 backward launches, all of the phase's), its first K5
+                 launch replayed.  The replayed layer 0 of each model (head
+                 dims 128, 64, 96 and 32) also gets the backward kernel, as
+                 in phase 6.  ``--only-lm`` runs phases 1, 2 and 10 alone.
 11. train      — after phase 10, with its models freed and every launch
                  count at 0: the training path at full width and depth.
                  qwen2-0.5b (``launch/train``'s default arch, 24 layers,
@@ -135,29 +147,37 @@ Phases, each printing one JSON line:
                  warm-up step and 5 timed ones (median seconds, tokens/s,
                  peak memory, the model FLOP rate over the bf16 peak, every
                  loss finite), K5 192 launches a step (forward and remat
-                 recompute, 24 layers, 4 microbatches).  A checkpoint
+                 recompute, 24 layers, 4 microbatches) and its backward
+                 kernel 96 (a layer and microbatch); during the timed steps
+                 a call of the plain attention or its backward on a CUDA
+                 tensor raises.  A checkpoint
                  after step 3 restored into a fresh model and AdamW state
                  bit-identical, whose step 4 (under ``torch.profiler``)
                  gives the uninterrupted loss within 1e-3.  One
-                 microbatch's gradients through K5's autograd node against
-                 the plain attention under autograd: every parameter within
-                 RMS ratio 5e-2, non-zero q/k/v gradients.
-                 ``launch/train.py``'s main: 6 steps of batch 4 at S = 512,
-                 a checkpoint after the sixth.  Then the warm-up step's first K5
-                 launch against the plain version, timed beside SDPA, with
-                 the plain backward's time.  ``--only-train`` runs
-                 phases 1, 2, 11 and 13 alone.
+                 microbatch's gradients through K5's autograd node (the
+                 forward and backward kernels) against the plain attention
+                 under autograd: every parameter within RMS ratio 5e-2,
+                 non-zero q/k/v gradients.  ``launch/train.py``'s main: 6
+                 steps of batch 4 at S = 512, a checkpoint after the sixth.
+                 Then the warm-up step's first K5 launch against the plain
+                 version, timed beside SDPA, and the backward kernel on its
+                 operands as in phase 6, timed beside ``attention_bwd_ref``,
+                 autograd through the plain attention (the node's backward
+                 before the kernel) and SDPA's backward.  ``--only-train``
+                 runs phases 1, 2, 11 and 13 alone.
 12. mesh       — after phase 11, with its models freed and every launch
                  count at 0: the same paths sharded over a ``DeviceMesh``
                  (``make_host_mesh(data=WORLD_SIZE, model=1)``, one NCCL
                  rank here), DTensor weights placed by ``tree_sharding``.
                  qwen2-0.5b through ``build_train(fsdp=True)`` at phase
                  11's shape: the first step's loss and weights against the
-                 unsharded step from the same seed and batch (loss rtol
-                 1e-3, weights within 2 x the step's learning rate), every
-                 K5 launch of that step held to the plain version at once,
-                 then 5 timed steps (median, tokens/s, peak memory), K5 192
-                 launches a step on the ranks' own shards; the sharded
+                 unsharded step from the same seed and batch (loss and
+                 clip norm within 1e-5, weights within an eighth of the
+                 step's learning rate), every K5 launch of that step held
+                 to the plain version at once, then 5 timed steps (median,
+                 tokens/s, peak memory), K5 192 launches and its backward
+                 96 a step on the ranks' own shards, the plain attention
+                 raising on the card; the sharded
                  train state saved and restored through
                  ``restore(shardings=)`` bit-identical.  llama3.2-3b
                  through ``build_prefill`` at S = 4,096 against
@@ -180,8 +200,9 @@ Phases, each printing one JSON line:
                  it, with the trace's seconds.
 
 Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5, 11 and
-12's, K5's phases 10, 11 and 12's; K5's ``head_dim_cases`` give the head
-dims 96 and 32), the raw ``nvidia-smi`` line, and the
+12's, K5's and its backward's phases 10, 11 and 12's; K5's
+``head_dim_cases`` give the head dims 96 and 32, its backward's every head
+dim), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
 script refuses to run without a CUDA device.  It imports neither ``jax`` nor
 the reference package.
@@ -1660,11 +1681,10 @@ def case_record(label, got, want, ms, plain_ms, nbytes, nops, ops_per_s,
     return rec
 
 
-def phase_entry_kernels(inp, secs) -> dict:
+def phase_entry_kernels(inp, secs, smi: str) -> dict:
     """Each kernel against its plain version on the entry points' inputs,
-    with CUDA-event times; launches here are not counted."""
-    import torch.nn.functional as F
-
+    with CUDA-event times, and K5's backward kernel on each attention case's
+    operands; launches here are not counted."""
     from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT,
                                                 attention_bf16_scores,
                                                 attention_pairs, attention_ref,
@@ -1675,7 +1695,8 @@ def phase_entry_kernels(inp, secs) -> dict:
     from repro_torch.kernels.pred_filter import (compile_conjunction,
                                                  pred_filter, pred_filter_ref)
 
-    recs = {"single": [], "membership": [], "flash_attention": []}
+    recs = {"single": [], "membership": [], "flash_attention": [],
+            "flash_attention_backward": []}
     # K3: q6's int32 atoms over the padded lineitem slab
     atoms, thr = compile_conjunction(inp["q6_int"], inp["order"], {})
     c = inp["cols"]
@@ -1767,15 +1788,10 @@ def phase_entry_kernels(inp, secs) -> dict:
                     f"K5 {name} {dt}: RMS ratio {rms:.3g} (limit "
                     f"{BF16_RMS_LIMIT}), control {control:.3g} must exceed it")
         q4, k4, v4 = (x.view(1, h, s, d) for x in (qf, kf, vf))
-        if window is None:
-            def sdpa():
-                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        else:
-            pos = torch.arange(s, device="cuda")
-            keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+        def sdpa():
+            return sdpa_call(q4, k4, v4, window)
+
         lib = sdpa().view(h, s, d)
         lib_err = float((lib.float() - want.float()).abs().max())
         lib_share = limit_share(lib, want, qf, kf, vf, window)
@@ -1798,6 +1814,9 @@ def phase_entry_kernels(inp, secs) -> dict:
             entry_s=secs[f"mha_flash {name} {dt}"], **sizes))
         del got, want
         torch.cuda.empty_cache()
+        recs["flash_attention_backward"].append(k5_backward(
+            f"mha_flash {name}", qf, kf, vf, window, smi,
+            phase="entry_kernel_backward", config=cfg))
     return recs
 
 
@@ -1822,56 +1841,74 @@ SMOKE_ARCH = "llama3.2-3b"
 SMOKE_TRAIN_B = 8
 
 
-def keep_k5_calls(indices) -> tuple:
-    """Wrap K5's wrapper as ``mha_flash`` calls it so the calls numbered
-    ``indices`` (from 0, counted from now) keep their operands and output.
-    Returns (kept {index: (q, k, v, window, out)}, undo)."""
+K5_FORWARDS = ("flash_attention", "flash_attention_fwd")
+
+
+def wrap_k5_forwards(make) -> callable:
+    """Wrap both of K5's forward wrappers as ``mha_flash`` calls them (the
+    forward alone in prefill, the forward with its log-sum-exp under
+    autograd): ``make(real, returns_lse)`` gives each wrapper.  Returns the
+    undo."""
     from repro_torch.kernels.flash_attn import ops
 
-    real = ops.flash_attention
+    reals = {name: getattr(ops, name) for name in K5_FORWARDS}
+    for name, real in reals.items():
+        setattr(ops, name, make(real, name == "flash_attention_fwd"))
+    return lambda: [setattr(ops, n, r) for n, r in reals.items()]
+
+
+def keep_k5_calls(indices) -> tuple:
+    """Wrap K5's forward wrappers as ``mha_flash`` calls them so the calls
+    numbered ``indices`` (from 0, counted from now) keep their operands and
+    output.  Returns (kept {index: (q, k, v, window, out)}, undo)."""
     kept, count = {}, [0]
 
-    def wrapper(q, k, v, window=None, **kw):
-        out = real(q, k, v, window=window, **kw)
-        if count[0] in indices:  # a train step's operands carry autograd
-            kept[count[0]] = (q.detach(), k.detach(), v.detach(), window,
-                              out.detach())
-        count[0] += 1
-        return out
+    def make(real, returns_lse):
+        def wrapper(q, k, v, window=None, **kw):
+            res = real(q, k, v, window=window, **kw)
+            # what the model sees: the node rounds the float32 o to q's dtype
+            out = res[0].to(q.dtype) if returns_lse else res
+            if count[0] in indices:  # a train step's operands carry autograd
+                kept[count[0]] = (q.detach(), k.detach(), v.detach(), window,
+                                  out.detach())
+            count[0] += 1
+            return res
+        return wrapper
 
-    ops.flash_attention = wrapper
-    return kept, lambda: setattr(ops, "flash_attention", real)
+    return kept, wrap_k5_forwards(make)
 
 
 def check_k5_calls(path: str, smi: str) -> tuple:
-    """Wrap K5's wrapper as ``mha_flash`` calls it so that every call from
-    now on is held against the plain version at once: within
+    """Wrap K5's forward wrappers as ``mha_flash`` calls them so that every
+    call from now on is held against the plain version at once: within
     ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
     elements (checks are not launches of the path).  Returns (done, undo):
     ``done()`` emits one line with the count and the worst shares, raises
     if a call failed, and unwraps."""
     from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_ref,
-                                                ops, rms_ratio)
+                                                rms_ratio)
 
-    real = ops.flash_attention
     seen = {"checked": 0, "worst_share": 0.0, "worst_rms": 0.0}
 
-    def wrapper(q, k, v, window=None, **kw):
-        out = real(q, k, v, window=window, **kw)
-        with torch.no_grad():
-            want = attention_ref(q, k, v, window=window)
-            share = limit_share(out, want, q, k, v, window)
-            rms = rms_ratio(out, want)
-            del want
-        seen["checked"] += 1
-        seen["worst_share"] = max(seen["worst_share"], share)
-        seen["worst_rms"] = max(seen["worst_rms"], rms)
-        return out
+    def make(real, returns_lse):
+        def wrapper(q, k, v, window=None, **kw):
+            res = real(q, k, v, window=window, **kw)
+            out = res[0].to(q.dtype) if returns_lse else res
+            with torch.no_grad():
+                want = attention_ref(q, k, v, window=window)
+                share = limit_share(out, want, q, k, v, window)
+                rms = rms_ratio(out, want)
+                del want
+            seen["checked"] += 1
+            seen["worst_share"] = max(seen["worst_share"], share)
+            seen["worst_rms"] = max(seen["worst_rms"], rms)
+            return res
+        return wrapper
 
-    ops.flash_attention = wrapper
+    undo = wrap_k5_forwards(make)
 
     def done() -> dict:
-        ops.flash_attention = real
+        undo()
         rec = {"phase": "mesh_k5_check", "path": path, **seen,
                "rms_limit": BF16_RMS_LIMIT, "nvidia_smi": smi}
         emit(rec)
@@ -1888,6 +1925,50 @@ def k5_launches() -> int:
     return LAUNCHES["flash_attention"]
 
 
+def k5_bwd_launches() -> int:
+    from repro_torch.kernels.flash_attn import LAUNCHES
+
+    return LAUNCHES["flash_attention_backward"]
+
+
+PLAIN_ATTENTION = ("attention_ref", "attention_lse_ref", "attention_bwd_ref")
+
+
+class plain_off_card:
+    """While open, a call of K5's plain versions (the forward, its
+    log-sum-exp, the backward) on a CUDA tensor raises, wherever the port
+    binds them: the timed steps must run the kernels.  Entering checks that
+    the guard fires."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn as pkg
+        from repro_torch.kernels.flash_attn import flash_attn, ops, ref
+
+        def guard(name, fn):
+            def call(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"{name} ran on the card in a timed step")
+                return fn(*args, **kw)
+            return call
+
+        self.saved = [(m, n, getattr(m, n)) for m in (pkg, flash_attn, ops, ref)
+                      for n in PLAIN_ATTENTION if hasattr(m, n)]
+        for m, n, fn in self.saved:
+            setattr(m, n, guard(n, fn))
+        x = torch.zeros((1, 8, 32), device="cuda")
+        try:
+            ops.mha_ref(x[..., None, :], x[..., None, :], x[..., None, :])
+        except AssertionError:
+            return self
+        self.__exit__()
+        raise AssertionError("the plain attention's guard did not fire")
+
+    def __exit__(self, *exc):
+        for m, n, fn in reversed(self.saved):
+            setattr(m, n, fn)
+        return False
+
+
 def timed_prefill(step, model, batch) -> tuple:
     """One prefill call: (logits, host seconds to the synchronise, K5
     launches)."""
@@ -1899,13 +1980,124 @@ def timed_prefill(step, model, batch) -> tuple:
     return logits, time.perf_counter() - t0, k5_launches() - before
 
 
-def replay_k5(name, layer, kept, smi, path: str = "prefill",
-              phase: str = "lm_kernel", **extra) -> dict:
-    """One kept K5 launch of the model path against its plain version:
-    within ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
-    elements; kernel, plain and SDPA times on the same operands."""
+def sdpa_call(q4, k4, v4, window):
+    """``scaled_dot_product_attention`` of ``[B, H, S, D]`` tensors, causal,
+    the window as a boolean mask: the library's yardstick."""
     import torch.nn.functional as F
 
+    if window is None:
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    s = q4.shape[2]
+    pos = torch.arange(s, device=q4.device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+
+
+def k5_backward(label: str, q, k, v, window, smi: str,
+                phase: str = "k5_backward", **extra) -> dict:
+    """The backward kernel on one K5 case's ``[BH, S, D]`` operands: o and
+    lse from the forward kernel, dO a seeded normal draw.  The backward
+    reference reads that o and lse, so each is first held to its own plain
+    version: lse within 2e-5 (1 + |lse|) of ``attention_lse_ref``, the
+    float32 o, unrounded, within ``attention_limit`` of ``attention_ref``
+    of the float32 inputs (and, in bf16, within ``BF16_RMS_LIMIT``).  Then
+    dq, dk and dv against ``attention_bwd_ref`` on the same inputs
+    (float32: within ``attention_bwd_limit`` per element; bf16: each within
+    ``BWD_BF16_RMS_LIMIT``, which the control that rounds the scores must
+    exceed), bit-equal over two runs; kernel, plain and SDPA-backward times
+    beside the bound, 10 D flops per unmasked pair and head.  These
+    launches are checks, not the path's."""
+    from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT,
+                                                BWD_BF16_RMS_LIMIT,
+                                                attention_bwd_bf16_scores,
+                                                attention_bwd_limit,
+                                                attention_bwd_ref,
+                                                attention_lse_ref,
+                                                attention_pairs, attention_ref,
+                                                flash_attention_backward,
+                                                flash_attention_fwd, rms_ratio)
+
+    bh, s, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    o, lse = flash_attention_fwd(q, k, v, window=window)
+    want_lse = attention_lse_ref(q, k, v, window=window)
+    lse_share = float(((lse - want_lse).abs() / (2e-5 * (1 + want_lse.abs()))).max())
+    del want_lse
+    want_o = attention_ref(q.float(), k.float(), v.float(), window=window)
+    o_share = limit_share(o, want_o, q, k, v, window)
+    o_rms = rms_ratio(o, want_o)
+    del want_o
+    torch.cuda.empty_cache()
+    fwd_ok = lse_share <= 1 and o_share <= 1 and (not bf16 or o_rms <= BF16_RMS_LIMIT)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    args = (q, k, v, o, lse, do)
+    got = flash_attention_backward(*args, window=window)
+    again = flash_attention_backward(*args, window=window)
+    want = attention_bwd_ref(*args, window=window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    rec = {"case": f"K5 backward {label}: BH={bh} S={s} D={d} window={window} "
+                   f"{str(q.dtype).split('.')[-1]}",
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want)),
+           "rms_ratio": [rms_ratio(a, b) for a, b in zip(got, want)],
+           "bit_equal_rerun": same, "lse_share_of_limit": lse_share,
+           "o_f32_share_of_limit": o_share, "o_f32_rms_ratio": o_rms}
+    if bf16:
+        control = attention_bwd_bf16_scores(*args, window=window)
+        rec.update(rms_limit=BWD_BF16_RMS_LIMIT, control_rms_ratio=[
+            rms_ratio(a, b) for a, b in zip(control, want)])
+        del control
+        ok = (max(rec["rms_ratio"]) <= BWD_BF16_RMS_LIMIT
+              and min(rec["control_rms_ratio"]) > BWD_BF16_RMS_LIMIT)
+    else:
+        lims = attention_bwd_limit(*args, window=window)
+        rec["share_of_limit"] = max(float(((a - b).abs() / lim).max())
+                                    for a, b, lim in zip(got, want, lims))
+        del lims
+        ok = rec["share_of_limit"] <= 1
+    del got, want
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_() for t in (q, k, v))
+    lib = sdpa_call(q4, k4, v4, window)
+    do4 = do.view(1, bh, s, d)
+    # q, k, v, dO, dq, dk, dv in q's type; o and lse in float32
+    nbytes = (7 * q.element_size() + 4) * bh * s * d + 4 * bh * s
+    nops = 10 * d * bh * attention_pairs(s, window)
+    peak = BF16_FLOPS_PER_S if bf16 else ALU_OPS_PER_S
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": nops / peak * 1e3}
+    rec.update(
+        backward_kernel_ms=time_ms(lambda: flash_attention_backward(*args, window=window),
+                                   reps=10, inner=2),
+        backward_plain_ms=time_ms(lambda: attention_bwd_ref(*args, window=window),
+                                  reps=3, inner=1),
+        backward_library_ms=time_ms(
+            lambda: torch.autograd.grad(lib, (q4, k4, v4), do4, retain_graph=True),
+            reps=10, inner=2),
+        bound_ms=max(bound.values()), bound_by=max(bound, key=bound.get),
+        bound_bytes=nbytes, bound_ops=nops, nvidia_smi=smi, **extra)
+    emit({"phase": phase, **rec})
+    del lib, q4, k4, v4
+    torch.cuda.empty_cache()
+    if not fwd_ok:
+        raise AssertionError(f"K5 forward's o or lse, which the backward "
+                             f"reads, differs from its plain version: {rec}")
+    if not ok or not same:
+        raise AssertionError(f"K5 backward kernel differs from its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def replay_k5(name, layer, kept, smi, path: str = "prefill",
+              phase: str = "lm_kernel", backward: bool = False,
+              **extra) -> dict:
+    """One kept K5 launch of the model path against its plain version:
+    within ``attention_limit`` per element and ``BF16_RMS_LIMIT`` over all
+    elements; kernel, plain and SDPA times on the same operands.  With
+    ``backward``, the backward kernel on the same operands
+    (:func:`k5_backward`), its record under ``"backward"``."""
     from repro_torch.kernels.flash_attn import (BF16_RMS_LIMIT, attention_pairs,
                                                 attention_ref, flash_attention,
                                                 rms_ratio)
@@ -1919,15 +2111,9 @@ def replay_k5(name, layer, kept, smi, path: str = "prefill",
                              f"limit, RMS ratio {rms:.3g}")
     bh, s, d = q.shape
     q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
-    if window is None:
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    else:
-        pos = torch.arange(s, device="cuda")
-        keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+    def sdpa():
+        return sdpa_call(q4, k4, v4, window)
 
     rec = case_record(
         f"K5 {name} {path} layer {layer}: BH={bh} S={s} D={d} window={window}",
@@ -1944,11 +2130,15 @@ def replay_k5(name, layer, kept, smi, path: str = "prefill",
         rms_limit=BF16_RMS_LIMIT, nvidia_smi=smi, **extra)
     del want
     torch.cuda.empty_cache()
+    if backward:
+        rec["backward"] = k5_backward(f"{name} {path} layer {layer}", q, k, v,
+                                      window, smi, phase=f"{phase}_backward")
     return rec
 
 
 # kernel-name categories of the prefill profile, first match wins
 PROFILE_CATEGORIES = (("k5", ("flash_attention",)),
+                      ("k5_backward", ("flash_bwd",)),
                       ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas",
                                 "sm90")),
                       ("elementwise", ("elementwise",)),
@@ -2181,7 +2371,7 @@ def lm_smoke(smi: str) -> dict:
                          generator=gen, device="cuda")
     kept, undo = keep_k5_calls({0})
     try:
-        opt, m, step_s, step_n = timed_train_step(
+        opt, m, step_s, step_n, step_bwd = timed_train_step(
             make_train_step(cfg, opt_cfg), model, opt,
             {"tokens": toks, "labels": toks})
     finally:
@@ -2190,16 +2380,19 @@ def lm_smoke(smi: str) -> dict:
            "layers": L, "S": LM_PREFILL_S, "prefill_s": pre_s,
            "prefill_k5_launches": pre_n, "train_B": SMOKE_TRAIN_B,
            "train_step_s": step_s, "train_k5_launches": step_n,
+           "train_k5_backward_launches": step_bwd,
            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "nvidia_smi": smi}
     emit(rec)
     if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(
             logits[..., :cfg.vocab].float()).all():
         raise AssertionError(f"{cfg.name} prefill: bad logits")
-    if pre_n != L or step_n != 2 * L or not np.isfinite(rec["loss"]):
+    if pre_n != L or step_n != 2 * L or step_bwd != L or not np.isfinite(
+            rec["loss"]):
         raise AssertionError(f"{cfg.name} on the card: {rec}")
     del model, opt, logits
-    return {"launches": pre_n + step_n, "kept": kept, "record": rec}
+    return {"launches": pre_n + step_n, "bwd_launches": step_bwd, "kept": kept,
+            "record": rec}
 
 
 def free_card() -> None:
@@ -2222,7 +2415,7 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
     t_phase = time.perf_counter()
     llama_ms = next((r["ms"] for r in k5_entry_recs or ()
                      if "llama3.2-3b bfloat16" in r["case"]), None)
-    flash_attn.reset_launches()
+    flash_attn.reset_launches()  # both K5 kernels' counts
     model = lm_model("llama3.2-3b", smi)
     llama, kept_llama = lm_prefill(model, LM_PREFILL_S, smi, reps=3,
                                    k5_ms=llama_ms, profiled=True)
@@ -2246,18 +2439,23 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
     smoke = lm_smoke(smi)
     free_card()
     emit({"phase": "lm_head_dims_total", "seconds": time.perf_counter() - t0})
-    launches = k5_launches()
+    launches, bwd_launches = k5_launches(), k5_bwd_launches()
     prefills = [llama, hymba, short, phi]
     counted = (sum(sum(r["k5_launches_per_call"]) for r in prefills)
                + check["k5_launches_prefill"] + smoke["launches"])
     emit({"phase": "lm_launches", "k5_launches": launches,
-          "k5_launches_of_prefill_calls": counted})
-    if launches != counted:
-        raise AssertionError(f"K5 launched {launches} times in phase 10, its "
-                             f"prefill calls account for {counted}")
+          "k5_launches_of_prefill_calls": counted,
+          "k5_backward_launches": bwd_launches,
+          "k5_backward_launches_of_train_step": smoke["bwd_launches"]})
+    if launches != counted or bwd_launches != smoke["bwd_launches"]:
+        raise AssertionError(f"K5 launched {launches} / {bwd_launches} times "
+                             f"in phase 10, its calls account for {counted} / "
+                             f"{smoke['bwd_launches']}")
     replays = []
     for rec, kept in ((llama, kept_llama), (hymba, kept_hymba), (phi, kept_phi)):
-        mine = [replay_k5(rec["model"], i, kept[i], smi) for i in sorted(kept)]
+        # the backward kernel at each head dim on layer 0's operands
+        mine = [replay_k5(rec["model"], i, kept[i], smi, backward=i == 0)
+                for i in sorted(kept)]
         emit({"phase": "lm_k5_share", "model": rec["model"], "S": rec["S"],
               "k5_share_of_prefill_replayed":
               rec["k5_launches_per_call"][0] * statistics.mean(
@@ -2265,12 +2463,13 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
         replays += mine
         kept.clear()
     d32 = replay_k5(smoke["record"]["model"], 0, smoke["kept"][0], smi,
-                    path="smoke train step")
+                    path="smoke train step", backward=True)
     smoke["kept"].clear()
     free_card()
     emit({"phase": "lm_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
-    return {"launches": launches, "replays": replays + [d32],
+    return {"launches": launches, "bwd_launches": bwd_launches,
+            "replays": replays + [d32],
             "per_prefill": {r["model"]: r["k5_launches_per_call"][0]
                             for r in (llama, hymba, phi)},
             "head_dims": {"d96": next(r for r in replays if r["model"] == PHI_ARCH),
@@ -2378,19 +2577,21 @@ def train_flops(model, tokens: int, sequences: int) -> int:
 
 def timed_train_step(step, model, opt, batch) -> tuple:
     """One train step: (opt, metrics, host seconds to a synchronise, K5
-    launches)."""
+    forward launches, K5 backward launches)."""
     torch.cuda.synchronize()
-    before = k5_launches()
+    before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
     model, opt, metrics = step(model, opt, batch)
     torch.cuda.synchronize()
-    return opt, metrics, time.perf_counter() - t0, k5_launches() - before
+    return (opt, metrics, time.perf_counter() - t0, k5_launches() - before,
+            k5_bwd_launches() - before_bwd)
 
 
 def train_grad_check(model, batch, smi: str) -> dict:
     """One microbatch through ``loss_fn`` under autograd twice, the same
     weights and batch: the K5 route (``mha_flash``, the FlashAttention
-    node) and the plain route (``mha_ref`` under autograd).  Every
+    node: the forward and backward kernels) and the plain route
+    (``mha_ref`` under autograd).  Every
     parameter's gradient within ``GRAD_RMS_LIMIT``; the attention weights
     and biases must have non-zero gradients on the K5 route."""
     from repro_torch.kernels.flash_attn import ops, rms_ratio
@@ -2403,12 +2604,12 @@ def train_grad_check(model, batch, smi: str) -> dict:
         loss = model.loss_fn(mb)
         return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
 
-    before = k5_launches()
+    before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
     loss_k5, g_k5 = grads()
     torch.cuda.synchronize()
     k5_s = time.perf_counter() - t0
-    launches = k5_launches() - before
+    launches, bwd_launches = k5_launches() - before, k5_bwd_launches() - before_bwd
     layers.mha_flash = ops.mha_ref
     t0 = time.perf_counter()
     try:
@@ -2428,7 +2629,8 @@ def train_grad_check(model, batch, smi: str) -> dict:
     rec = {"phase": "train_grad_check", "model": TRAIN_ARCH,
            "microbatch": TRAIN_B // TRAIN_ACCUM, "S": TRAIN_S, "remat": True,
            "loss_k5": loss_k5, "loss_plain": loss_plain,
-           "k5_launches": launches, "k5_route_s": k5_s,
+           "k5_launches": launches, "k5_backward_launches": bwd_launches,
+           "k5_route_s": k5_s,
            "plain_route_s": plain_s,
            "worst_rms_ratio_by_kind": {k: v[0] for k, v in sorted(worst.items())},
            "worst_leaf_by_kind": {k: v[1] for k, v in sorted(worst.items())},
@@ -2438,8 +2640,9 @@ def train_grad_check(model, batch, smi: str) -> dict:
     del g_k5, g_plain
     if zero or max(v[0] for v in worst.values()) > GRAD_RMS_LIMIT:
         raise AssertionError(f"K5-route gradients: {rec}")
-    if launches != 2 * model.cfg.n_layers:
-        raise AssertionError(f"gradient check launched K5 {launches} times")
+    if launches != 2 * model.cfg.n_layers or bwd_launches != model.cfg.n_layers:
+        raise AssertionError(f"gradient check launched K5 {launches} times, "
+                             f"its backward {bwd_launches}")
     return rec
 
 
@@ -2497,19 +2700,20 @@ def train_main(smi: str) -> dict:
     ckpt_dir = TRAIN_MAIN_ARGS[-1]
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     buf = io.StringIO()
-    before = k5_launches()
+    before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         losses = train.main(TRAIN_MAIN_ARGS)
     secs = time.perf_counter() - t0
-    launches = k5_launches() - before
+    launches, bwd_launches = k5_launches() - before, k5_bwd_launches() - before_bwd
     printed = buf.getvalue().splitlines()
     for line in printed:
         print(line, flush=True)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     rec = {"phase": "train_main", "args": TRAIN_MAIN_ARGS[:-2],
            "losses": losses, "seconds": secs, "k5_launches": launches,
-           "printed": printed, "nvidia_smi": smi}
+           "k5_backward_launches": bwd_launches, "printed": printed,
+           "nvidia_smi": smi}
     emit(rec)
     if (len(losses) != 6 or not np.isfinite(losses).all()
             or not any(line.startswith("[lineage] doc") for line in printed)):
@@ -2526,8 +2730,6 @@ def phase_train(smi: str) -> dict:
     version afterwards.  Returns the launches and replay records."""
     from dataclasses import replace
 
-    import torch.nn.functional as F
-
     from repro_torch.configs import get
     from repro_torch.kernels.flash_attn import attention_ref
     from repro_torch.kernels.pred_filter import LAUNCHES as PF_LAUNCHES
@@ -2540,7 +2742,7 @@ def phase_train(smi: str) -> dict:
     cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
     pipe, pf_calls, pf_launches = train_pipeline(cfg.vocab, smi)
     L = cfg.n_layers
-    want = 2 * L * TRAIN_ACCUM
+    want, want_bwd = 2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM
     t0 = time.perf_counter()
     model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -2548,23 +2750,28 @@ def phase_train(smi: str) -> dict:
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     opt = adamw.init(dict(model.named_parameters()), opt_cfg)
     step = make_train_step(cfg, opt_cfg)
-    per_step, runs = [], {}
+    per_step, per_step_bwd, runs = [], [], {}
 
     torch.cuda.reset_peak_memory_stats()
     kept, undo = keep_k5_calls({0})  # microbatch 0's first layer
     try:
-        opt, m, warm_s, n = timed_train_step(step, model, opt, train_batch(pipe, 0))
+        opt, m, warm_s, n, nb = timed_train_step(step, model, opt,
+                                                 train_batch(pipe, 0))
     finally:
         undo()
     per_step.append(n)
+    per_step_bwd.append(nb)
     runs[0] = (warm_s, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
     fresh = ck = None
-    for i in range(1, 1 + TRAIN_TIMED):
-        opt, m, secs, n = timed_train_step(step, model, opt, train_batch(pipe, i))
-        per_step.append(n)
-        runs[i] = (secs, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
-        if i == TRAIN_CKPT_AFTER:
-            fresh, fresh_opt, ck = train_checkpoint_save(model, opt, i)
+    with plain_off_card():  # the timed steps: no plain attention on the card
+        for i in range(1, 1 + TRAIN_TIMED):
+            opt, m, secs, n, nb = timed_train_step(step, model, opt,
+                                                   train_batch(pipe, i))
+            per_step.append(n)
+            per_step_bwd.append(nb)
+            runs[i] = (secs, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
+            if i == TRAIN_CKPT_AFTER:
+                fresh, fresh_opt, ck = train_checkpoint_save(model, opt, i)
     peak = torch.cuda.max_memory_allocated()
     secs = [runs[i][0] for i in range(1, 1 + TRAIN_TIMED)]
     med = statistics.median(secs)
@@ -2589,7 +2796,9 @@ def phase_train(smi: str) -> dict:
           "grad_norms": [runs[i][2] for i in sorted(runs)],
           "lrs": [runs[i][3] for i in sorted(runs)],
           "k5_launches_per_step": per_step, "want_k5_launches_per_step": want,
-          "nvidia_smi": smi})
+          "k5_backward_launches_per_step": per_step_bwd,
+          "want_k5_backward_launches_per_step": want_bwd,
+          "plain_attention_off_card": True, "nvidia_smi": smi})
     if not all(np.isfinite(r[1]) and np.isfinite(r[2]) for r in runs.values()):
         raise AssertionError(f"train step: non-finite loss or gradient norm {runs}")
 
@@ -2601,11 +2810,13 @@ def phase_train(smi: str) -> dict:
         _, restored["opt"], restored["metrics"] = step(
             fresh, fresh_opt, train_batch(pipe, TRAIN_CKPT_AFTER + 1))
 
-    before = k5_launches()
+    before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
-    prof = profile_device(restored_step, med)
+    with plain_off_card():
+        prof = profile_device(restored_step, med)
     prof_s = time.perf_counter() - t0
     per_step.append(k5_launches() - before)
+    per_step_bwd.append(k5_bwd_launches() - before_bwd)
     emit({"phase": "train_profile", "model": TRAIN_ARCH, "step":
           TRAIN_CKPT_AFTER + 1, "seconds_median": med, "seconds": prof_s,
           **prof, "nvidia_smi": smi})
@@ -2628,53 +2839,55 @@ def phase_train(smi: str) -> dict:
     main_rec = train_main(smi)
     free_card()
 
-    launches = k5_launches()
+    launches, bwd_launches = k5_launches(), k5_bwd_launches()
     counted = sum(per_step) + grad["k5_launches"] + main_rec["k5_launches"]
+    counted_bwd = (sum(per_step_bwd) + grad["k5_backward_launches"]
+                   + main_rec["k5_backward_launches"])
     main_want = 6 * L  # 6 steps, one microbatch, remat off
     emit({"phase": "train_launches", "k5_launches": launches,
           "k5_launches_of_train_steps": counted, "k5_per_step": per_step,
           "want_per_step": want, "k5_grad_check": grad["k5_launches"],
           "k5_launch_train": main_rec["k5_launches"],
+          "k5_backward_launches": bwd_launches,
+          "k5_backward_launches_of_train_steps": counted_bwd,
+          "k5_backward_per_step": per_step_bwd, "want_backward_per_step": want_bwd,
+          "k5_backward_launch_train": main_rec["k5_backward_launches"],
           "pred_filter": dict(PF_LAUNCHES)})
-    if any(n != want for n in per_step):
-        raise AssertionError(f"train steps launched K5 {per_step}, want {want}")
-    if launches != counted or main_rec["k5_launches"] != main_want:
-        raise AssertionError(f"K5 launched {launches} times in phase 11, its "
-                             f"train steps account for {counted}")
+    if any(n != want for n in per_step) or any(n != want_bwd for n in per_step_bwd):
+        raise AssertionError(f"train steps launched K5 {per_step} and its "
+                             f"backward {per_step_bwd}, want {want} and {want_bwd}")
+    if launches != counted or main_rec["k5_launches"] != main_want or \
+            bwd_launches != counted_bwd or main_rec["k5_backward_launches"] != 6 * L:
+        raise AssertionError(f"K5 launched {launches} / {bwd_launches} times in "
+                             f"phase 11, its train steps account for {counted} / "
+                             f"{counted_bwd}")
 
     replays = []
     t0 = time.perf_counter()
     for i in sorted(kept):
         layer = i  # microbatch 0's forward: launch i is layer i
         rec = replay_k5(TRAIN_ARCH, layer, kept[i], smi, path="train step",
-                        phase="train_kernel", microbatch=0)
+                        phase="train_kernel", backward=True, microbatch=0)
         q, k, v, window, _ = kept[i]
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         g = torch.randn_like(q)
 
-        def plain_backward():
+        def autograd_backward():
             with torch.enable_grad():
                 a = attention_ref(*leaves, window=window)
                 return torch.autograd.grad(a, leaves, g)
 
-        rec["backward_plain_ms"] = time_ms(plain_backward, reps=3, inner=1)
-        # the library's yardstick: SDPA's backward on the same operands
-        q4, k4, v4 = (t.detach().view(1, *t.shape).requires_grad_() for t in leaves)
-        if window is None:
-            lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        else:
-            pos = torch.arange(q.shape[1], device="cuda")
-            keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-            lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
-        rec["backward_library_ms"] = time_ms(
-            lambda: torch.autograd.grad(lib, (q4, k4, v4), g[None],
-                                        retain_graph=True), reps=10, inner=2)
-        emit({"phase": "train_k5_backward", "case": rec["case"],
-              "backward_plain_ms": rec["backward_plain_ms"],
-              "backward_library_ms": rec["backward_library_ms"],
+        # what the node ran on the card before the backward kernel
+        rec["backward"]["backward_autograd_plain_ms"] = time_ms(
+            autograd_backward, reps=3, inner=1)
+        emit({"phase": "train_k5_backward", "case": rec["backward"]["case"],
+              **{key: rec["backward"][key] for key in (
+                  "backward_kernel_ms", "backward_plain_ms",
+                  "backward_autograd_plain_ms", "backward_library_ms",
+                  "bound_ms", "bound_by", "rms_ratio")},
               "per_step": L * TRAIN_ACCUM, "nvidia_smi": smi})
         replays.append(rec)
-        del leaves, g, lib, q4, k4, v4
+        del leaves, g
         free_card()
     kept.clear()
     emit({"phase": "train_k5_replay", "seconds": time.perf_counter() - t0})
@@ -2683,7 +2896,8 @@ def phase_train(smi: str) -> dict:
     pf_calls.clear()
     emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
-    return {"launches": launches, "replays": replays, "per_step": want,
+    return {"launches": launches, "bwd_launches": bwd_launches,
+            "replays": replays, "per_step": want, "per_step_bwd": want_bwd,
             "first_loss": runs[0][1], "step_s": med, "model_flops": flops,
             "pred_filter": pf_launches, "pred_filter_recs": pf}
 
@@ -2723,7 +2937,7 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
 
     cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
     L = cfg.n_layers
-    want = 2 * L * TRAIN_ACCUM
+    want, want_bwd = 2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM
     catalog, tokens = synth_corpus(n_docs=TRAIN_DOCS, vocab=cfg.vocab, seed=0)
     pipe = LineageDataPipeline(catalog, tokens, seq_len=TRAIN_S,
                                batch=TRAIN_B, seed=0, device="cuda")
@@ -2731,7 +2945,7 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
     batch0 = train_batch(pipe, 0)
 
     ref = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    _, m_ref, ref_s, ref_launches = timed_train_step(
+    _, m_ref, ref_s, ref_launches, ref_bwd = timed_train_step(
         make_train_step(cfg, opt_cfg), ref,
         adamw.init(dict(ref.named_parameters()), opt_cfg), batch0)
     ref_w = [p.detach() for p in ref.parameters()]
@@ -2747,7 +2961,7 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
     torch.cuda.synchronize()
     kept, undo = keep_k5_calls({0})
     checked = check_k5_calls("mesh train step", smi)  # every launch of it
-    before = k5_launches()
+    before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
     try:
         model, opt, m = step(model, opt, batch0)
@@ -2756,6 +2970,7 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
         check = checked()
         undo()
     warm_s, per_step = time.perf_counter() - t0, [k5_launches() - before]
+    per_step_bwd = [k5_bwd_launches() - before_bwd]
     torch.cuda.reset_peak_memory_stats()  # over the timed steps
     loss, norm = float(m["loss"]), float(m["grad_norm"])
     diffs = [float((a.detach().full_tensor().float() - b.float()).abs().max())
@@ -2763,10 +2978,13 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
     exact = sum(d == 0 for d in diffs)
     del ref_w
     runs = []
-    for i in range(1, 1 + TRAIN_TIMED):
-        opt, mi, secs, n = timed_train_step(step, model, opt, train_batch(pipe, i))
-        runs.append((secs, float(mi["loss"]), float(mi["grad_norm"])))
-        per_step.append(n)
+    with plain_off_card():  # the timed steps: no plain attention on the card
+        for i in range(1, 1 + TRAIN_TIMED):
+            opt, mi, secs, n, nb = timed_train_step(step, model, opt,
+                                                    train_batch(pipe, i))
+            runs.append((secs, float(mi["loss"]), float(mi["grad_norm"])))
+            per_step.append(n)
+            per_step_bwd.append(nb)
     med = statistics.median(r[0] for r in runs)
     placements = sorted({str(tuple(p.placements)) for p in model.parameters()})
     rec = {"phase": "mesh_train_step", "model": TRAIN_ARCH,
@@ -2786,6 +3004,10 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
            "placements": placements,
            "k5_launches_per_step": per_step, "want_k5_launches_per_step": want,
            "unsharded_k5_launches": ref_launches,
+           "k5_backward_launches_per_step": per_step_bwd,
+           "want_k5_backward_launches_per_step": want_bwd,
+           "unsharded_k5_backward_launches": ref_bwd,
+           "plain_attention_off_card": True,
            "warmup_k5_checked": check["checked"], "nvidia_smi": smi}
     emit(rec)
     if abs(loss - ref_loss) > MESH_RTOL * abs(ref_loss) or \
@@ -2795,9 +3017,11 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
                              f"{ref_loss}, grad norm {norm} vs {ref_norm}, "
                              f"weights {max(diffs)} at lr {lr}")
     if any(n != want for n in per_step) or ref_launches != want or \
-            check["checked"] != want:
-        raise AssertionError(f"mesh train steps launched K5 {per_step}, "
-                             f"unsharded {ref_launches}, want {want}")
+            check["checked"] != want or ref_bwd != want_bwd or \
+            any(n != want_bwd for n in per_step_bwd):
+        raise AssertionError(f"mesh train steps launched K5 {per_step} and its "
+                             f"backward {per_step_bwd}, unsharded {ref_launches} "
+                             f"and {ref_bwd}, want {want} and {want_bwd}")
     if not all(np.isfinite(r[1]) for r in runs):
         raise AssertionError(f"mesh train: non-finite loss {runs}")
 
@@ -2830,8 +3054,10 @@ def mesh_train(mesh, smi: str, phase11_loss=None) -> dict:
                              f"leaves identical")
     del model, opt, state, back, pipe
     free_card()
-    return {"launches": sum(per_step) + ref_launches, "kept": kept,
-            "per_step": per_step[0], "record": rec}
+    return {"launches": sum(per_step) + ref_launches,
+            "bwd_launches": sum(per_step_bwd) + ref_bwd, "kept": kept,
+            "per_step": per_step[0], "per_step_bwd": per_step_bwd[0],
+            "record": rec}
 
 
 def mesh_launch_train(mesh, smi: str) -> dict:
@@ -2860,17 +3086,19 @@ def mesh_launch_train(mesh, smi: str) -> dict:
     for name in steps:
         m = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
         state[name] = [m, adamw.init(dict(m.named_parameters()), opt_cfg)]
-    secs, losses, launches = {k: [] for k in steps}, {k: [] for k in steps}, 0
+    secs, losses = {k: [] for k in steps}, {k: [] for k in steps}
+    launches = bwd_launches = 0
     for i in range(1 + TRAIN_TIMED):  # the first, a warm-up, untimed
         toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
         for name, step in steps.items():
             torch.cuda.synchronize()
-            before = k5_launches()
+            before, before_bwd = k5_launches(), k5_bwd_launches()
             t0 = time.perf_counter()
             model, opt, m = step(*state[name], {"tokens": toks, "labels": toks})
             loss = float(m["loss"])  # waits for the step, as launch/train does
             dt = time.perf_counter() - t0
             launches += k5_launches() - before
+            bwd_launches += k5_bwd_launches() - before_bwd
             state[name] = [model, opt]
             losses[name].append(loss)
             if i:
@@ -2882,14 +3110,18 @@ def mesh_launch_train(mesh, smi: str) -> dict:
            "unsharded_s": secs["unsharded"], "mesh_s": secs["mesh"],
            "unsharded_s_median": med["unsharded"], "mesh_s_median": med["mesh"],
            "mesh_over_unsharded": med["mesh"] / med["unsharded"],
-           "losses": losses, "k5_launches": launches, "nvidia_smi": smi}
+           "losses": losses, "k5_launches": launches,
+           "k5_backward_launches": bwd_launches, "nvidia_smi": smi}
     emit(rec)
     del state, steps
     free_card()
     if any(abs(a - b) > MESH_RTOL * abs(a) for a, b in
            zip(losses["unsharded"], losses["mesh"])):
         raise AssertionError(f"launch/train's step on the mesh: {losses}")
-    return {"launches": launches, "record": rec}
+    if bwd_launches != launches:  # remat off: one backward a forward
+        raise AssertionError(f"launch/train's steps: {launches} K5 launches, "
+                             f"{bwd_launches} backward")
+    return {"launches": launches, "bwd_launches": bwd_launches, "record": rec}
 
 
 def mesh_prefill_decode(mesh, smi: str) -> dict:
@@ -3043,12 +3275,17 @@ def phase_mesh(smi: str, sf: float, phase11_loss=None) -> dict:
     finally:
         unwrap()
     launches, pf_launches = k5_launches(), dict(PF_LAUNCHES)
+    bwd_launches = k5_bwd_launches()
     counted = train["launches"] + cli["launches"] + serve["launches"]
+    counted_bwd = train["bwd_launches"] + cli["bwd_launches"]
     emit({"phase": "mesh_launches", "k5_launches": launches,
-          "k5_launches_of_steps": counted, "pred_filter": pf_launches})
-    if launches != counted:
-        raise AssertionError(f"K5 launched {launches} times in phase 12, its "
-                             f"steps account for {counted}")
+          "k5_launches_of_steps": counted, "k5_backward_launches": bwd_launches,
+          "k5_backward_launches_of_steps": counted_bwd,
+          "pred_filter": pf_launches})
+    if launches != counted or bwd_launches != counted_bwd:
+        raise AssertionError(f"K5 launched {launches} / {bwd_launches} times in "
+                             f"phase 12, its steps account for {counted} / "
+                             f"{counted_bwd}")
     if pf_launches["cmp"] < 1 or len(pf_calls) != pf_launches["cmp"] + pf_launches["sets"]:
         raise AssertionError(f"mesh lineage: {len(pf_calls)} kept calls, "
                              f"launches {pf_launches}")
@@ -3064,8 +3301,10 @@ def phase_mesh(smi: str, sf: float, phase11_loss=None) -> dict:
     free_card()
     emit({"phase": "mesh_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
-    return {"launches": launches, "replays": replays, "pred_filter": pf_launches,
+    return {"launches": launches, "bwd_launches": bwd_launches,
+            "replays": replays, "pred_filter": pf_launches,
             "pred_filter_recs": pf, "per_step": train["per_step"],
+            "per_step_bwd": train["per_step_bwd"],
             "per_prefill": serve["per_prefill"]}
 
 
@@ -3185,7 +3424,7 @@ def main() -> None:
           "seconds": secs})
     check_entry_outputs(inp, out)
     del out
-    recs = phase_entry_kernels(inp, secs)
+    recs = phase_entry_kernels(inp, secs, smi)
     emit({"phase": "entry_points_total", "seconds": time.perf_counter() - t6})
     del inp
     free_card()
@@ -3238,11 +3477,7 @@ def main() -> None:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["case"],
                 "model_path_ms": {x["case"]: x["ms"] for x in replays},
-                "train_backward_plain_ms": {x["case"]: x["backward_plain_ms"]
-                                            for x in train["replays"]},
                 "mesh_ms": {x["case"]: x["ms"] for x in mesh["replays"]},
-                "train_backward_library_ms": {
-                    x["case"]: x["backward_library_ms"] for x in train["replays"]},
                 "entry_ms": {x["case"]: x["ms"] for x in entry_recs},
                 "head_dim_cases": {
                     k: {f: r[f] for f in ("case", "ms", "plain_ms", "bound_ms",
@@ -3250,6 +3485,41 @@ def main() -> None:
                                           "max_abs_err", "share_of_limit",
                                           "rms_ratio")}
                     for k, r in lm["head_dims"].items()}}
+
+    def k5_backward_entry(lm, train, mesh, entry_recs, source):
+        """K5's backward kernel on the training paths (phases 10, 11 and
+        12): its launches there, its time on phase 11's first replayed
+        layer (qwen2-0.5b's training shape); every head dim's case (phase
+        10's replays and phase 6's cases) beside."""
+        trained = [x["backward"] for x in train["replays"]]
+        cases = [x["backward"] for x in lm["replays"] if "backward" in x]
+        r = trained[0]
+        return {"name": "flash_attention_backward (K5 backward)",
+                "route": "cuda", "source": source,
+                "replaces": REPLACES["flash_attention"],
+                "replaces_note": "the reference has no backward kernel: JAX "
+                                 "differentiates its plain attention "
+                                 "(src/repro/kernels/flash_attn/ref.py:11)",
+                "launches": int(lm["bwd_launches"]) + int(train["bwd_launches"])
+                + int(mesh["bwd_launches"]),
+                "launches_by_phase": {"lm": int(lm["bwd_launches"]),
+                                      "train": int(train["bwd_launches"]),
+                                      "mesh": int(mesh["bwd_launches"])},
+                "launches_per_train_step": train["per_step_bwd"],
+                "mesh_launches_per_train_step": mesh["per_step_bwd"],
+                "max_abs_err": max(x["max_abs_err"]
+                                   for x in [*trained, *cases, *entry_recs]),
+                "ms": r["backward_kernel_ms"], "plain_ms": r["backward_plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["backward_library_ms"], "shape": r["case"],
+                "autograd_plain_ms": r["backward_autograd_plain_ms"],
+                "rms_ratio": r["rms_ratio"],
+                "head_dim_cases": [
+                    {f: x[f] for f in ("case", "backward_kernel_ms",
+                                       "backward_plain_ms", "backward_library_ms",
+                                       "bound_ms", "bound_by", "max_abs_err",
+                                       "rms_ratio")}
+                    for x in [*cases, *entry_recs]]}
 
     def later_pf(v):  # phases 11 and 12's replayed K1/K2 launches of one variant
         return [r for ph in (train, mesh)
@@ -3277,6 +3547,8 @@ def main() -> None:
                         if "q3 orders" in r["case"])),
         k5_entry(lm, train, mesh, recs["flash_attention"], entry_launches,
                  f"{kdir}/flash_attn/csrc/flash_attn.cu"),
+        k5_backward_entry(lm, train, mesh, recs["flash_attention_backward"],
+                          f"{kdir}/flash_attn/csrc/flash_attn_bwd.cu"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ seconds with ``nvcc`` — no PyTorch headers.  Each source compiles to an
 object in its own ``nvcc`` process, all started together, so the build takes
 as long as its slowest source; one more ``nvcc`` links the objects into
 ``libkernels.so``, which ``ctypes`` loads.  The library is built at first use
-into ``build/repro_torch/<sha of all sources>/`` under the repository root
-(listed in ``.gitignore``), so an edited source never loads a stale binary.
+into ``build/repro_torch/<sha of all sources and headers>/`` under the
+repository root (listed in ``.gitignore``), so an edited source never loads
+a stale binary.
 Each wrapper declares its own launcher's argument types through
 :func:`launcher`.  Nothing here runs at import time: the CPU-only test host
 imports this module without ``nvcc`` or a card.
@@ -58,9 +59,10 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and the headers they
+    include (``*/csrc/*.cuh``) lives, built or not."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(_KERNELS.glob("*/csrc/*.cuh")):
         h.update(str(src.relative_to(_KERNELS)).encode() + b"\0")
         h.update(src.read_bytes())
     return _REPO / "build" / "repro_torch" / h.hexdigest()[:16] / "libkernels.so"

@@ -6,6 +6,14 @@
 // behind its ``mha_flash``: q, k, v ``[BH, S, D]`` (float32 or bf16) ->
 // o ``[BH, S, D]`` in q's dtype, scale 1/sqrt(D), masked scores -1e30,
 // o = acc / max(l, 1e-30).  The S x S scores never reach device memory.
+// Under autograd it also writes each query's log-sum-exp, lse = m + log(l)
+// in natural log of the scaled scores (float32 ``[BH, S]``), from which the
+// backward kernel (flash_attn_bwd.cu) recomputes P, and writes o in
+// float32 also from bf16 inputs: the backward's delta = rowsum(dO o) cancels
+// against rowsum(P dP), so o rounded to bf16 would move dq and dk by more
+// than the backward's own roundings (tests/test_torch_flash_backward.py::
+// test_bwd_bf16_needs_float32_o).
+// Prefill passes no lse pointer and takes o in its input type.
 //
 // Bound on this card: operations.  4 * D flops per unmasked (q, k) pair
 // against 4 * D * 2-4 bytes per row of q, k, v and o: in bf16 the 989
@@ -54,11 +62,16 @@
 // tiles entirely outside the window, as the TPU kernel skips its blocks.  A
 // row whose first visited tile is fully masked computes exp(-1e30 - -1e30)
 // = 1 there; the next real score wipes that out through alpha = exp(m -
-// m_new) = 0, as on the TPU.  (-INFINITY would give NaN.)
+// m_new) = 0, as on the TPU.  (-INFINITY would give NaN.)  Every row visits
+// the tile of its own diagonal, so its final m is a real score's and the
+// stored lse is exact.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -104,7 +117,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
-                        int s_len, int window, float scale) {
+                        float* __restrict__ lse, int s_len, int window,
+                        float scale) {
   static_assert(D % 16 == 0, "16 threads share a row: D / 16 columns each");
   constexpr int LD = D + kPad;   // row stride of the Q, K and V tiles
   constexpr int LP = kBK + kPad; // row stride of the P tile
@@ -259,6 +273,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + 4 * tr + i;
     if (row >= s_len) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // m and l are the scaled scores' (q was scaled on load): natural log
+    if (lse != nullptr && tc == 0) lse[(int64_t)blockIdx.y * s_len + row] = m[i] + logf(den);
     float* out = o + head + (int64_t)row * D;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -281,66 +297,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kTileK = 64;    // keys per staged K / V tile
 constexpr int kPadH = 8;      // bf16 of padding per shared row (16 bytes)
 constexpr int kWarps = 4;     // warps per CTA, 16 query rows each
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (relative error about 2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; ``bytes`` 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row-major) * b (16 x 8, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, ``lo`` in the low half (the lower column)
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // max / sum over the 4 threads of a quad (the threads that share a row of
 // an mma fragment)
@@ -360,13 +317,14 @@ constexpr size_t smem_bytes_bf16() {
   return sizeof(__nv_bfloat16) * 2 * 2 * kTileK * (D + kPadH);
 }
 
-// three CTAs an SM: 168 registers a thread at most
-template <int D>
+// three CTAs an SM: 168 registers a thread at most; o in bf16 or float32
+template <int D, typename Out>
 __global__ void __launch_bounds__(32 * kWarps, 3)
     flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int s_len, int window,
+                         Out* __restrict__ o,
+                         float* __restrict__ lse, int s_len, int window,
                          float scale_log2) {
   static_assert(D % 16 == 0, "k-steps of 16 and pairs of 8-column n-tiles");
   constexpr int BQ = 16 * kWarps;  // query rows per CTA
@@ -538,11 +496,20 @@ __global__ void __launch_bounds__(32 * kWarps, 3)
     const int row = qw + g + 8 * r;
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);
     if (row >= s_len) continue;
-    __nv_bfloat16* out = o + head + (int64_t)row * D + 2 * t4;
+    // m is in log2 units of the scaled scores: natural log is (m + log2 l) ln 2
+    if (lse != nullptr && t4 == 0) {
+      lse[(int64_t)blockIdx.y * s_len + row] = (m[r] + log2f(den)) * kLn2;
+    }
+    Out* out = o + head + (int64_t)row * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(out + 8 * n) =
-          bf16_pair(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      if constexpr (std::is_same_v<Out, float>) {
+        *reinterpret_cast<float2*>(out + 8 * n) =
+            make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + 8 * n) =
+            bf16_pair(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      }
     }
   }
 }
@@ -552,8 +519,8 @@ __global__ void __launch_bounds__(32 * kWarps, 3)
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int s, int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+               int bh, int s, int window, float scale, cudaStream_t stream) {
   auto kern = flash_attention_f32<D>;
   constexpr size_t smem = smem_bytes_f32<D>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -563,14 +530,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
                   static_cast<unsigned>(bh));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, s, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int s, int window, float scale, cudaStream_t stream) {
-  auto kern = flash_attention_bf16<D>;
+template <int D, typename Out>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int s, int window, float scale,
+                cudaStream_t stream) {
+  auto kern = flash_attention_bf16<D, Out>;
   constexpr size_t smem = smem_bytes_bf16<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -584,8 +553,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
                   static_cast<unsigned>(bh));
   kern<<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), s,
-      window, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<Out*>(o), lse, s, window,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -594,23 +563,29 @@ bool aligned16(const void* p) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, int window, float scale, int bf16, cudaStream_t stream) {
-  return bf16 ? launch_bf16<D>(q, k, v, o, bh, s, window, scale, stream)
-              : launch_f32<D>(q, k, v, o, bh, s, window, scale, stream);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int s, int window, float scale, int bf16, int o_f32,
+           cudaStream_t stream) {
+  if (!bf16) return launch_f32<D>(q, k, v, o, lse, bh, s, window, scale, stream);
+  return o_f32 ? launch_bf16<D, float>(q, k, v, o, lse, bh, s, window, scale, stream)
+               : launch_bf16<D, __nv_bfloat16>(q, k, v, o, lse, bh, s, window,
+                                               scale, stream);
 }
 
 }  // namespace
 
 // Launches one forward pass on ``stream``.  Device pointers q, k, v, o
 // [bh, s, d], contiguous, 16-byte aligned, float32 (bf16 = 0) or bf16
-// (bf16 = 1); d is 32, 64, 96 or 128 (the head dims of the repo's
-// configurations: 32 in every smoke configuration, 96 in phi-3-vision-4.2b);
-// bh at most 65535; window 0 means none, else keys with kpos <= qpos -
-// window are masked.  Returns the cudaError_t of the launch (0 on success).
+// (bf16 = 1); o in the inputs' type, or float32 with o_f32 = 1; d is 32,
+// 64, 96 or 128 (the head dims of the repo's configurations: 32 in every
+// smoke configuration, 96 in phi-3-vision-4.2b); lse float32 [bh, s] or
+// null (not written); bh at most 65535; window 0 means none, else keys
+// with kpos <= qpos - window are masked.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bh, int s,
-                                      int d, int window, float scale, int bf16,
+                                      const void* v, void* o, void* lse,
+                                      int bh, int s, int d, int window,
+                                      float scale, int bf16, int o_f32,
                                       void* stream) {
   if (bh < 0 || bh > 65535 || s < 0 || window < 0 ||
       (d != 32 && d != 64 && d != 96 && d != 128) || !q || !k || !v || !o ||
@@ -619,10 +594,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, bh, s, window, scale, bf16, st);
-    case 64: return launch<64>(q, k, v, o, bh, s, window, scale, bf16, st);
-    case 96: return launch<96>(q, k, v, o, bh, s, window, scale, bf16, st);
-    default: return launch<128>(q, k, v, o, bh, s, window, scale, bf16, st);
+    case 32: return launch<32>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
+    case 64: return launch<64>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
+    case 96: return launch<96>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
+    default: return launch<128>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
   }
 }

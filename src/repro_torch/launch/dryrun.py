@@ -30,12 +30,13 @@ the real step (``build_train`` / ``build_prefill`` / ``build_decode`` of
   bytes and group size, timed by the reference's ring formulas
   (``roofline.wire_bytes``).  Memory is the fake tensors' peak live bytes
   (each storage counted once while a tensor holds it).
-* Attention is K5's work: the kernel is the operator
-  ``repro_torch::flash_attention``, which on fake tensors only shapes its
-  output and whose FLOP formula is ``4 D`` per unmasked (query, key) pair
-  and head; its bytes are q, k, v and o.  A training step's attention
-  backward is the plain version's (the port has no backward kernel), and
-  is counted op by op as it runs.
+* Attention is K5's work: the kernels are operators which on fake tensors
+  only shape their outputs.  Prefill's ``repro_torch::flash_attention`` and
+  a training step's ``repro_torch::flash_attention_fwd`` cost ``4 D`` per
+  unmasked (query, key) pair and head and move q, k, v and o (and the
+  log-sum-exp); the training step's backward,
+  ``repro_torch::flash_attention_backward``, costs ``10 D`` and moves q, k,
+  v, o, lse, dO, dq, dk and dv.  No ``[BH, S, S]`` tensor is counted.
 * The sequence recurrences (hymba's SSM, xLSTM's mLSTM and sLSTM) run one
   step each, broadcast over time, as XLA's cost analysis counts a scan
   body once; :func:`roofline.ssm_scan_correction` adds the rest, as in the

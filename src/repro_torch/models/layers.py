@@ -209,7 +209,7 @@ def flash_causal(q, k, v, window: Optional[int] = None):
     On DTensors the kernel cannot take the sharded tensor: each rank runs
     it on its own ``[B_local, S, H_local, D]`` (batch over the data axes,
     heads over ``model`` where they divide it, else all heads on every
-    rank; the sequence whole), and the plain backward runs on the same
+    rank; the sequence whole), and K5's backward kernel runs on the same
     shards."""
     spec = ("batch", None, "heads", None)
     return local_call(lambda a, b, c: _flash_local(a, b, c, window),

@@ -310,6 +310,46 @@ def test_prefill_attention_is_counted_as_k5(window, no_process_group):
     assert c.flops == want
 
 
+def test_train_attention_backward_is_counted_as_k5(no_process_group,
+                                                   monkeypatch):
+    """A smoke llama train step (2 microbatches, remat) on one rank: each
+    layer's attention backward is one call of the backward kernel's
+    operator a microbatch, costing ``10 hd`` per pair, head and sequence,
+    its forward (and remat's recompute) the forward's with the
+    log-sum-exp; no op of the step makes a ``[.., S, S]`` tensor."""
+    from torch.utils._pytree import tree_flatten
+
+    cfg = replace(port_configs.smoke_config("llama3.2-3b"), accum_steps=2,
+                  remat=True)
+    B, S = 4, 384
+    calls = []
+
+    class Recording(D.Counter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = self.counts.flops
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented:
+                shapes = [tuple(t.shape) for t in tree_flatten(out)[0]
+                          if isinstance(t, torch.Tensor)]
+                calls.append((str(func._overloadpacket),
+                              self.counts.flops - before, shapes))
+            return out
+
+    monkeypatch.setattr(D, "Counter", Recording)
+    _counts(cfg, ShapeConfig("t", S, B, "train"), {"data": 1, "model": 1},
+            fsdp=False)
+    names = [name for name, _, _ in calls]
+    L, A = cfg.n_layers, cfg.accum_steps
+    bh = B // A * cfg.n_heads
+    bwd = [f for name, f, _ in calls
+           if name == "repro_torch.flash_attention_backward"]
+    assert bwd == [10 * cfg.hd * attention_pairs(S) * bh] * (L * A)
+    assert names.count("repro_torch.flash_attention_fwd") == 2 * L * A
+    assert "repro_torch.flash_attention" not in names
+    assert not [c for c in calls for sh in c[2]
+                if len(sh) >= 2 and sh[-1] == sh[-2] == S]
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_reduced_depth_traces_extrapolate_to_full_depth(kind, no_process_group):
     """``ANALYSIS_LAYERS`` traces extrapolated by ``combine_delta`` equal the

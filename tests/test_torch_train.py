@@ -263,10 +263,11 @@ def cuda_device():
 @pytest.mark.parametrize("hd", [32, 64])
 def test_cuda_train_step_k5_gradients(cuda_device, hd, monkeypatch):
     """One train step of a 2-layer qwen2-shaped model (head dim 32, the
-    smoke configs', or 64, qwen2's) in float32 on the card: two K5 launches
-    (one a layer, remat off), and every gradient within 1e-3 RMS of the
-    plain route's (TF32 off; the kernel's float32 is within 2e-5 of the
-    plain version per element)."""
+    smoke configs', or 64, qwen2's) in float32 on the card: two K5 forward
+    launches and two backward launches (one a layer, remat off), and every
+    gradient within 1e-3 RMS of the plain route's, autograd through the
+    plain attention (TF32 off; the kernels' float32 is within 2e-5 of the
+    plain versions)."""
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.launch.steps import make_train_step
 
@@ -279,12 +280,14 @@ def test_cuda_train_step_k5_gradients(cuda_device, hd, monkeypatch):
     flash_attn.reset_launches()
     _, got = port_grads(card, b)
     assert flash_attn.LAUNCHES["flash_attention"] == 2
+    assert flash_attn.LAUNCHES["flash_attention_backward"] == 2
     for n in ("wq", "wk", "wv", "bq", "bk", "bv"):
         assert np.abs(got[f"layers.0.attn.{n}"]).max() > 0, n
     monkeypatch.setattr(ops, "mha_flash", ops.mha_ref)
     monkeypatch.setattr("repro_torch.models.layers.mha_flash", ops.mha_ref)
     _, want = port_grads(card, b)
     assert flash_attn.LAUNCHES["flash_attention"] == 2
+    assert flash_attn.LAUNCHES["flash_attention_backward"] == 2
     for n in want:
         assert rms_ratio(got[n], want[n]) <= 1e-3, n
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
