@@ -6,7 +6,15 @@
 Phases, each printing one JSON line:
 
 1. device      — the card's name and power limit (``nvidia-smi``).
-2. build       — compiles the CUDA kernel from ``src/repro_torch/kernels``.
+2. build       — compiles the CUDA kernels from ``src/repro_torch/kernels``,
+                 then prints ``k5_bwd_resources`` (registers, spill bytes
+                 and dynamic shared memory of each bf16 instance of K5's
+                 backward kernels, from ``ptxas -v`` in the build
+                 directory, with ptxas's warnings about them) and
+                 ``k5_bwd_sass`` (their ``HGMMA``, ``UTMALDG`` and
+                 ``HMMA`` instructions in ``cuobjdump -sass`` of the
+                 library): each must run on wgmma with TMA loads and no
+                 ``mma.sync``.
 3. kernel      — ``pred_filter_batch``, comparison variant (K1) and set
                  variant (K2), against its plain PyTorch version on the card
                  at TPC-H sf-1 lineitem widths: exact equality, CUDA-event
@@ -1919,6 +1927,44 @@ def check_k5_calls(path: str, smi: str) -> tuple:
     return done
 
 
+# the bf16 instances of K5's backward kernels: (head dim, dQ pass)
+K5_BWD_BF16 = {f"flash_bwd_{p}_bf16<{d}>": (d, p == "dq") for p in ("dkdv", "dq")
+               for d in (32, 64, 96, 128)}
+
+
+def phase_k5_bwd_build(lib, smi: str) -> None:
+    """Resources and SASS of the bf16 instances of K5's backward kernels:
+    registers, stack and spill bytes from ``ptxas -v`` (kept beside the
+    library), their dynamic shared memory from the library; the count of
+    ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and ``HMMA`` (mma.sync) in
+    each.  Each must hold wgmma and TMA loads and no mma.sync, where the
+    toolkit has ``cuobjdump``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    smem = _build.launcher("flash_attention_bwd_bf16_smem", ctypes.c_int, ctypes.c_int)
+    res = _build.resources((lib.parent / _build.PTXAS_LOG).read_text())
+    missing = [k for k in K5_BWD_BF16 if k not in res]
+    rec = {k: {**res.get(k, {}), "dynamic_smem": smem(d, int(dq))}
+           for k, (d, dq) in K5_BWD_BF16.items()}
+    emit({"phase": "k5_bwd_resources", "kernels": rec, "nvidia_smi": smi})
+    text = _build.sass(lib)
+    counts = None if text is None else _build.sass_counts(
+        text, ("HGMMA", "UTMALDG", "HMMA"))
+    emit({"phase": "k5_bwd_sass", "nvidia_smi": smi,
+          "kernels": None if counts is None else {k: counts.get(k) for k in K5_BWD_BF16},
+          "note": "no cuobjdump in the toolkit" if counts is None else None})
+    if missing:
+        raise AssertionError(f"ptxas -v printed nothing for {missing}")
+    if counts is not None:
+        wrong = {k: counts.get(k) for k in K5_BWD_BF16
+                 if not counts.get(k) or not counts[k]["HGMMA"]
+                 or not counts[k]["UTMALDG"] or counts[k]["HMMA"]}
+        if wrong:
+            raise AssertionError(f"K5 backward not on wgmma and TMA alone: {wrong}")
+
+
 def k5_launches() -> int:
     from repro_torch.kernels.flash_attn import LAUNCHES
 
@@ -3392,6 +3438,7 @@ def main() -> None:
     lib = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(str(lib), ROOT)})
+    phase_k5_bwd_build(lib, smi)
 
     # float32 products of the plain versions stay in float32
     torch.backends.cuda.matmul.allow_tf32 = False

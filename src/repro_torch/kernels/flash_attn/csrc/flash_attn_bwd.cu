@@ -34,25 +34,38 @@
 //   3. dQ: one CTA per query tile, looping over its key tiles; it
 //      recomputes S, P, dP and dS and keeps dQ of its rows in registers.
 // Two passes recompute S and dP twice: 7 products against the bound's 5,
-// the price of deterministic sums without atomics.
+// the price of deterministic sums without atomics.  Both take their tiles
+// longest first: early key tiles, late query tiles.
 //
-// bf16: the tensor cores (mma.sync.m16n8k16, float32 accumulators), as in
-//   the forward.  A CTA of 4 warps owns 64 keys (dK/dV) or 64 queries (dQ),
-//   16 a warp: one m16 tile.  The other side is staged in tiles of 64 rows
-//   at D <= 64 and 32 at D = 96 / 128 (the dK/dV CTA holds two float32
-//   accumulators of its 16 x D rows a warp: 128 registers at D = 128),
-//   bf16 in shared memory, two stages by cp.async (rows past S
-//   zero-filled), rows padded by 8 bf16 so ldmatrix phases fall on distinct
-//   banks.  dK/dV computes S^T = K Q^T and dP^T = V dO^T (A fragments from
-//   the warp's K and V rows by ldmatrix.x4, B from row-major Q and dO), so
-//   P^T and dS^T come out of the accumulators already laid out as the A
-//   fragments of dV += P^T dO and dK += dS^T Q, whose B fragments come from
-//   row-major dO and Q by ldmatrix.x4.trans.  dQ keeps its Q and dO rows as
-//   A fragments in registers; dS's accumulators are dQ += dS K's A
-//   fragments (K by ldmatrix.x4.trans).  P and dS are rounded to bf16
-//   before their products, as every tensor-core attention does
-//   (``attention_bwd_bf16`` in ref.py emulates it; ``BWD_BF16_RMS_LIMIT``).
-//   P = 2^(s * scale * log2(e) - lse * log2(e)) on ex2.approx.
+// bf16: wgmma and TMA (hopper.cuh).  A CTA of 384 threads owns 128 keys
+//   (dK/dV) or 128 queries (dQ): two consumer warpgroups of 64 rows each
+//   and a producer warpgroup, of which one warp works; setmaxnreg hands the
+//   producer's registers to the consumers (40 against 232).  The producer
+//   loads the CTA's own rows (K and V, or Q and dO) once by TMA, then keeps
+//   the other side's tiles (Q, dO, and lse * log2(e) and delta by plain
+//   loads, or K and V) in a ring of two stages guarded by full and empty
+//   mbarriers; 128 rows a tile at D <= 64 and 64 at D = 96 / 128, where
+//   dK and dV take 128 registers a thread.  dK/dV forms S^T and dP^T of
+//   a tile in chunks of 64 queries (32 at D = 96 / 128): with both chunks
+//   and dK, dV in registers, a whole tile would not fit beside them and
+//   ptxas would spill and serialize the wgmma.  At D = 128 it serializes
+//   them all the same ("insufficient register resources"), though it
+//   spills only 84 bytes.  The grid is (head, tile), so every head's
+//   longest tile starts before any shorter one.  Tensor maps are 3D
+//   [bh, s, d] with boxes of 32 columns (64-byte rows, 64-byte swizzle: one
+//   layout for every head dim), so rows past S read zeros of their own
+//   head.  dK/dV: S^T = K Q^T and dP^T = V dO^T as wgmma with both operands
+//   in shared memory (K-major); P^T = 2^(s scale log2(e) - lse log2(e)),
+//   masked to 0, is formed in place in S^T's accumulators while dP^T
+//   runs, then P^T and dS^T = P^T (dP^T - delta) are rounded to bf16 in
+//   registers as the A operands of dV += P^T dO and dK += dS^T Q, whose B
+//   (dO, Q) is read MN-major.  dQ: S = Q K^T and dP = dO V^T from shared
+//   memory, dS in registers as the A of dQ += dS K, K read MN-major.  P
+//   and dS are rounded to bf16 before their products, as every
+//   tensor-core attention does (``attention_bwd_bf16`` in ref.py emulates
+//   it; ``BWD_BF16_RMS_LIMIT``).  A warpgroup that sees none of a tile
+//   skips it; a warp whose rows cross the diagonal, the window's edge or S
+//   masks element by element.
 // float32: the CUDA cores in true float32, so ``attention_bwd_limit``'s
 //   2e-5 of the spread holds.  A CTA of 256 threads owns 32 keys (dK/dV) or
 //   32 queries (dQ) and stages 32-row tiles of the other side in float32,
@@ -62,20 +75,14 @@
 //   rows.
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
-
-// 4-byte global -> shared copy; ``bytes`` 0 zero-fills the destination
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -112,367 +119,441 @@ __global__ void __launch_bounds__(32 * kDeltaRows)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma and TMA, one producer warp and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;  // keys (dK/dV) or queries (dQ) per CTA
-constexpr int kPadH = 8;            // bf16 of padding per shared row
+constexpr int kRows = 128;    // keys (dK/dV) or queries (dQ) of a CTA
+constexpr int kGroups = 2;    // consumer warpgroups, 64 of those rows each
+constexpr int kThreadsTc = 128 * (kGroups + 1);  // and a producer warpgroup
+constexpr int kStages = 2;    // ring of the other side's tiles
+constexpr int kBox = 32;      // columns of a TMA box: 64-byte rows
+constexpr int kBoxRow = 2 * kBox;  // bytes of a box row
+constexpr int kProducerRegs = 40;  // registers a producer thread keeps
+constexpr int kConsumerRegs = 232;  // and a consumer thread takes
 
 // rows of the other side per staged tile
 template <int D>
-__host__ __device__ constexpr int other_rows() { return D <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int other_rows() { return D <= 64 ? 128 : 64; }
 
-// rows [row0, row0 + nrows) of x into shared rows of ``dst``, async
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* x, int row0,
-                                           int nrows, int s_len) {
-  constexpr int LD = D + kPadH, CH = D / 8;
-  for (int e = threadIdx.x; e < nrows * CH; e += 32 * kWarps) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const int row = row0 + r;
-    const bool in = row < s_len;
-    cp_async16(smem_addr(dst + r * LD + c), x + (int64_t)(in ? row : 0) * D + c,
-               in ? 16 : 0);
+// Shared memory of a pass, from a 1,024-byte boundary: the CTA's own rows
+// (K, V in dK/dV; Q, dO in dQ), kStages of the other side's two tiles,
+// with ``vals`` the tile rows' lse * log2(e) and delta (dK/dV), then the
+// barriers: one for the own rows, full and empty of each stage.
+template <int D, bool vals>
+struct Smem {
+  static constexpr int B = other_rows<D>();
+  static constexpr int OWN = kRows * D * 2;  // bytes of one own tensor
+  static constexpr int TILE = B * D * 2;     // bytes of one staged tile
+  static constexpr int VALS = 2 * OWN + 2 * kStages * TILE;
+  static constexpr int BARS = VALS + (vals ? 2 * kStages * B * 4 : 0);
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * kStages) + 1024;
+  __host__ __device__ static constexpr int own(int i) { return i * OWN; }
+  __host__ __device__ static constexpr int tile(int st, int i) {
+    return 2 * OWN + (2 * st + i) * TILE;
+  }
+  __host__ __device__ static constexpr int val(int st, int i) {
+    return VALS + (2 * st + i) * B * 4;
+  }
+  __host__ __device__ static constexpr int own_full() { return BARS; }
+  __host__ __device__ static constexpr int full(int st) { return BARS + 8 * (1 + st); }
+  __host__ __device__ static constexpr int empty(int st) {
+    return BARS + 8 * (1 + kStages + st);
+  }
+};
+
+// rows [row, row + ROWS) of one head of a [bh, s, D] tensor map, all D / 32
+// boxes, into the tile at ``dst``
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head) {
+#pragma unroll
+  for (int b = 0; b < D / kBox; ++b) {
+    tma_load_3d(dst + b * ROWS * kBoxRow, map, bar, b * kBox, row, head);
   }
 }
 
-template <int D>
-constexpr size_t smem_dkdv_bf16() {
-  // K and V of the CTA's keys; two stages of (Q, dO) rows and (lse, delta)
-  return sizeof(__nv_bfloat16) * (2 * kTile + 2 * 2 * other_rows<D>()) * (D + kPadH) +
-         sizeof(float) * 2 * 2 * other_rows<D>();
+// k-step kk (columns 16 kk .. 16 kk + 15) of rows [r0, r0 + 64) of a
+// [ROWS, D] tile read K-major: the A of a product over D, or its B
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc_sw64(tile + (kk / 2) * ROWS * kBoxRow + r0 * kBoxRow + (kk % 2) * 32,
+                   16, 8 * kBoxRow);
+}
+
+// k-step kk (rows 16 kk .. 16 kk + 15) of a [ROWS, D] tile read MN-major:
+// the B (16 x D) of a product over the tile's rows
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc_sw64(tile + kk * 16 * kBoxRow, ROWS * kBoxRow, 8 * kBoxRow);
+}
+
+// the 1,024-byte-aligned start of dynamic shared memory (``bytes`` leaves
+// room for the shift)
+__device__ __forceinline__ uint32_t smem_base(uint8_t*& p) {
+  const uint32_t raw = smem_addr(p);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  p += base - raw;
+  return base;
+}
+
+// Round float accumulators to bf16 A fragments: k-step kk of a 64 x N
+// accumulator is its n-tiles 2 kk and 2 kk + 1.
+template <int M, int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[M][4], const float (&x)[N], int kk) {
+  a[kk][0] = bf16_pair(x[8 * kk], x[8 * kk + 1]);
+  a[kk][1] = bf16_pair(x[8 * kk + 2], x[8 * kk + 3]);
+  a[kk][2] = bf16_pair(x[8 * kk + 4], x[8 * kk + 5]);
+  a[kk][3] = bf16_pair(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
 template <int D>
-constexpr size_t smem_dq_bf16() {
-  // Q and dO of the CTA's queries; two stages of (K, V) rows
-  return sizeof(__nv_bfloat16) * (2 * kTile + 2 * 2 * other_rows<D>()) * (D + kPadH);
-}
-
-template <int D>
-__global__ void __launch_bounds__(32 * kWarps, 2)
-    flash_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreadsTc, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int s_len, int window,
                         float scale, float scale_log2) {
-  static_assert(D % 16 == 0, "k-steps of 16 and pairs of 8-column n-tiles");
-  constexpr int BQ = other_rows<D>();  // queries per staged tile
-  constexpr int LD = D + kPadH;
-  constexpr int KS = D / 16;           // k-steps over d
-  constexpr int NT = BQ / 8;           // 8-query n-tiles of S^T
-  constexpr int DT = D / 8;            // 8-column n-tiles of dK, dV
-  constexpr int QSTAGE = 2 * BQ * LD;  // bf16 per stage: Q rows, dO rows
-  extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kTile * LD;
-  __nv_bfloat16* stages = vs + kTile * LD;
-  float* rowv = reinterpret_cast<float*>(stages + 2 * QSTAGE);  // [2][lse | delta]
+  static_assert(D % kBox == 0, "whole TMA boxes");
+  using L = Smem<D, true>;
+  constexpr int BQ = L::B;               // queries per staged tile
+  constexpr int NC = D <= 64 ? 64 : 32;  // and per chunk: S^T and dP^T fit
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sp = smem_raw;
+  const uint32_t base = smem_base(sp);
 
-  const int k0 = blockIdx.x * kTile;  // early keys see the most queries: first
-  const int64_t head = (int64_t)blockIdx.y * s_len * D;
-  const int64_t rows = (int64_t)blockIdx.y * s_len;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kw = k0 + 16 * warp;  // the warp's first key
-
-  auto stage_q = [&](int qt, int st) {
-    __nv_bfloat16* base = stages + st * QSTAGE;
-    stage_rows<D>(base, q + head, qt * BQ, BQ, s_len);
-    stage_rows<D>(base + BQ * LD, dout + head, qt * BQ, BQ, s_len);
-    float* rv = rowv + st * 2 * BQ;
-    for (int e = tid; e < 2 * BQ; e += 32 * kWarps) {
-      const int row = qt * BQ + e % BQ;
-      const bool in = row < s_len;
-      cp_async4(smem_addr(rv + e), (e < BQ ? lse : delta) + rows + (in ? row : 0),
-                in ? 4 : 0);
-    }
-  };
-
-  // the query tiles that see a key of this tile
-  const int k_last = min(k0 + kTile, s_len) - 1;
+  const int head = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;  // early keys see the most queries: first
+  // the query tiles that see a key of this CTA
+  const int k_last = min(k0 + kRows, s_len) - 1;
   const int q_end = window > 0 ? min(s_len, k_last + window) : s_len;
   const int qt_begin = k0 / BQ;
   const int qt_end = (q_end + BQ - 1) / BQ;
 
-  stage_rows<D>(ks, k + head, k0, kTile, s_len);
-  stage_rows<D>(vs, v + head, k0, kTile, s_len);
-  stage_q(qt_begin, 0);
-  cp_async_commit();
-
-  float dva[DT][4], dka[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::own_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(base + L::full(st), 32);            // the producer warp
+      mbar_init(base + L::empty(st), 4 * kGroups);  // each consumer warp
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kGroups) {
+    // producer: K and V of the CTA's keys once, then Q, dO, lse * log2(e)
+    // and delta of each query tile into the ring
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x - 128 * kGroups;
+    if (lane >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_tx(base + L::own_full(), 2 * L::OWN);
+      tma_rows<D, kRows>(base + L::own(0), &tm_k, base + L::own_full(), k0, head);
+      tma_rows<D, kRows>(base + L::own(1), &tm_v, base + L::own_full(), k0, head);
+    }
+    const int64_t rows = (int64_t)head * s_len;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int i = qt - qt_begin, st = i % kStages;
+      const uint32_t full = base + L::full(st);
+      mbar_wait(base + L::empty(st), ((i / kStages) & 1) ^ 1);
+      float* l2 = reinterpret_cast<float*>(sp + L::val(st, 0));
+      float* dl = reinterpret_cast<float*>(sp + L::val(st, 1));
+      for (int r = lane; r < BQ; r += 32) {
+        const int row = qt * BQ + r;
+        const bool in = row < s_len;
+        l2[r] = in ? lse[rows + row] * kLog2e : 0.f;
+        dl[r] = in ? delta[rows + row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * L::TILE);
+        tma_rows<D, BQ>(base + L::tile(st, 0), &tm_q, full, qt * BQ, head);
+        tma_rows<D, BQ>(base + L::tile(st, 1), &tm_do, full, qt * BQ, head);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys kw0 .. kw0 + 63, its warp 16 of them
+  setmaxnreg_inc<kConsumerRegs>();
+  // the warpgroup, known to be warp-uniform: its descriptors live in
+  // uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 64 * wg;
+  const int kwarp = kw0 + 16 * warp;
+  float dva[D / 2], dka[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dva[n] = dka[n] = 0.f;
+  mbar_wait(base + L::own_full(), 0);
 
   for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int st = (qt - qt_begin) & 1;
-    cp_async_wait_all();  // tile qt has landed
-    __syncthreads();      // ... for every thread; stage st ^ 1 is free
-    if (qt + 1 < qt_end) stage_q(qt + 1, st ^ 1);
-    cp_async_commit();
-    const int q0 = qt * BQ;
-    // none of the warp's 16 keys is seen by a query of this tile
-    if (kw >= s_len || kw > q0 + BQ - 1 ||
-        (window > 0 && kw + 15 <= q0 - window)) {
-      continue;
-    }
-    const __nv_bfloat16* qs = stages + st * QSTAGE;
-    const __nv_bfloat16* dos = qs + BQ * LD;
-    const float* lses = rowv + st * 2 * BQ;
-    const float* dels = lses + BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: A fragments of the warp's K and V rows
-    // (rows lane & 15, columns (lane >> 4) * 8 of each k-step), B fragments
-    // of 16 queries by one ldmatrix.x4 (matrices: queries 0-7 | d 0-7,
-    // queries 0-7 | d 8-15, queries 8-15 | d 0-7, queries 8-15 | d 8-15)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ka[4], va[4];
-      const int a_off = (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-      ldmatrix_x4(ka, smem_addr(ks + a_off));
-      ldmatrix_x4(va, smem_addr(vs + a_off));
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        const int b_off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                          kk * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(qs + b_off));
-        mma_bf16(s[2 * jp], ka, b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
-        ldmatrix_x4(b, smem_addr(dos + b_off));
-        mma_bf16(dp[2 * jp], va, b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
+    const int i = qt - qt_begin, st = i % kStages;
+    mbar_wait(base + L::full(st), (i / kStages) & 1);
+    const uint32_t qs = base + L::tile(st, 0), dos = base + L::tile(st, 1);
+    const float* l2 = reinterpret_cast<const float*>(sp + L::val(st, 0));
+    const float* dl = reinterpret_cast<const float*>(sp + L::val(st, 1));
+#pragma unroll 1
+    for (int c = 0; c < BQ; c += NC) {
+      const int q0 = qt * BQ + c;  // the chunk's first query
+      // a query of the chunk sees a key of the warpgroup
+      if (kw0 >= s_len || kw0 > q0 + NC - 1 || (window > 0 && kw0 + 63 <= q0 - window)) {
+        continue;
       }
-    }
 
-    // P^T and dS^T, rows (keys) g and g + 8, columns (queries) 8j + 2t4 +
-    // {0, 1}; a tile that crosses the diagonal, the window's edge or S is
-    // masked element by element.  Rounded to bf16 as A fragments: n-tile
-    // 2kk gives a0 (row g) and a1 (row g + 8), n-tile 2kk + 1 a2 and a3
-    const bool edge = kw + 15 > q0 || (window > 0 && kw <= q0 + BQ - 1 - window) ||
-                      q0 + BQ > s_len;
-    uint32_t pa[NT / 2][4], dsa[NT / 2][4];
+      // S^T = K Q^T and dP^T = V dO^T, both operands from shared memory
+      float s[NC / 2], dp[NC / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + 2 * t4 + (e & 1);
-        float p = ex2(fmaf(s[j][e], scale_log2, -lses[qi] * kLog2e));
-        if (edge && hidden(kw + g + 8 * (e >> 1), q0 + qi, window, s_len)) p = 0.f;
-        pv[e] = p;
-        dsv[e] = p * (dp[j][e] - dels[qi]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(s, desc_k<kRows>(base + L::own(0), 64 * wg, kk),
+                 desc_k<BQ>(qs, c, kk), kk);
       }
-      pa[j / 2][(j & 1) * 2] = bf16_pair(pv[0], pv[1]);
-      pa[j / 2][(j & 1) * 2 + 1] = bf16_pair(pv[2], pv[3]);
-      dsa[j / 2][(j & 1) * 2] = bf16_pair(dsv[0], dsv[1]);
-      dsa[j / 2][(j & 1) * 2 + 1] = bf16_pair(dsv[2], dsv[3]);
-    }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dp, desc_k<kRows>(base + L::own(1), 64 * wg, kk),
+                 desc_k<BQ>(dos, c, kk), kk);
+      }
+      wgmma_commit();
 
-    // dV += P^T dO and dK += dS^T Q: per 16-query k-step, B fragments for
-    // 16 columns by one ldmatrix.x4.trans (matrices: queries 0-7 | d 0-7,
-    // queries 8-15 | d 0-7, queries 0-7 | d 8-15, queries 8-15 | d 8-15)
+      // P^T in place of S^T while dP^T runs: rows (keys) g and g + 8 of the
+      // warp's 16, columns (queries) 8j + 2t4 + {0, 1}; a warp whose keys
+      // cross the diagonal, the window's edge or S is masked element by
+      // element
+      wgmma_wait<1>();
+      pin(s);
+      const bool edge = kwarp + 15 > q0 ||
+                        (window > 0 && kwarp <= q0 + NC - 1 - window) ||
+                        q0 + NC > s_len;
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int j = 0; j < NC / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(l2 + c + 8 * j + 2 * t4);
 #pragma unroll
-      for (int dpr = 0; dpr < DT / 2; ++dpr) {
-        const int b_off = (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
-                          dpr * 16 + (lane >> 4) * 8;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, smem_addr(dos + b_off));
-        mma_bf16(dva[2 * dpr], pa[kk], b[0], b[1]);
-        mma_bf16(dva[2 * dpr + 1], pa[kk], b[2], b[3]);
-        ldmatrix_x4_trans(b, smem_addr(qs + b_off));
-        mma_bf16(dka[2 * dpr], dsa[kk], b[0], b[1]);
-        mma_bf16(dka[2 * dpr + 1], dsa[kk], b[2], b[3]);
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l.y : l.x)));
+          if (edge && hidden(kwarp + g + 8 * (e >> 1), q0 + 8 * j + 2 * t4 + (e & 1),
+                             window, s_len)) {
+            p = 0.f;
+          }
+          s[4 * j + e] = p;
+        }
       }
+
+      // dS^T = P^T (dP^T - delta); P^T and dS^T rounded to bf16 as the A
+      // operands of dV += P^T dO and dK += dS^T Q
+      wgmma_wait<0>();
+      pin(dp);
+      uint32_t pa[NC / 16][4], dsa[NC / 16][4];
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(dl + c + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NC / 16; ++kk) {
+        to_a(pa, s, kk);
+        to_a(dsa, dp, kk);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NC / 16; ++kk) {
+        wgmma_rs_t(dva, pa[kk], desc_mn<BQ>(dos, c / 16 + kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < NC / 16; ++kk) {
+        wgmma_rs_t(dka, dsa[kk], desc_mn<BQ>(qs, c / 16 + kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dva);
+      pin(dka);
+      pin(pa);
+      pin(dsa);
     }
+    if (lane == 0) mbar_arrive(base + L::empty(st));  // the tile is consumed
   }
 
-  // rows (keys) g and g + 8, columns 8n + 2t4 + {0, 1}
+  // rows (keys) g and g + 8 of the warp's 16, columns 8n + 2t4 + {0, 1}
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = kw + g + 8 * r;
+    const int key = kwarp + g + 8 * r;
     if (key >= s_len) continue;
-    const int64_t off = head + (int64_t)key * D + 2 * t4;
+    const int64_t off = ((int64_t)head * s_len + key) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-          bf16_pair(dva[n][2 * r], dva[n][2 * r + 1]);
+          bf16_pair(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-          bf16_pair(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+          bf16_pair(dka[4 * n + 2 * r] * scale, dka[4 * n + 2 * r + 1] * scale);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(32 * kWarps, 2)
-    flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreadsTc, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dq, int s_len, int window,
                       float scale, float scale_log2) {
-  static_assert(D % 16 == 0, "k-steps of 16 and pairs of 8-column n-tiles");
-  constexpr int BK = other_rows<D>();  // keys per staged tile
-  constexpr int LD = D + kPadH;
-  constexpr int KS = D / 16;
-  constexpr int NT = BK / 8;           // 8-key n-tiles of S
-  constexpr int DT = D / 8;            // 8-column n-tiles of dQ
-  constexpr int KSTAGE = 2 * BK * LD;  // bf16 per stage: K rows, V rows
-  extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kTile * LD;
-  __nv_bfloat16* stages = dos + kTile * LD;
+  static_assert(D % kBox == 0, "whole TMA boxes");
+  using L = Smem<D, false>;
+  constexpr int BK = L::B;  // keys per staged tile
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sp = smem_raw;
+  const uint32_t base = smem_base(sp);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // late queries first
-  const int64_t head = (int64_t)blockIdx.y * s_len * D;
-  const int64_t rows = (int64_t)blockIdx.y * s_len;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int qw = q0 + 16 * warp;  // the warp's first query
-
-  auto stage_kv = [&](int kt, int st) {
-    stage_rows<D>(stages + st * KSTAGE, k + head, kt * BK, BK, s_len);
-    stage_rows<D>(stages + st * KSTAGE + BK * LD, v + head, kt * BK, BK, s_len);
-  };
-
+  const int head = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // late queries first
   // key tiles at or below the frontier that the window leaves visible
-  const int q_last = min(q0 + kTile, s_len) - 1;
+  const int q_last = min(q0 + kRows, s_len) - 1;
   const int kt_end = q_last / BK + 1;
   const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  stage_rows<D>(qs, q + head, q0, kTile, s_len);
-  stage_rows<D>(dos, dout + head, q0, kTile, s_len);
-  stage_kv(kt_begin, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  // Q and dO as A fragments, rows lane & 15, columns (lane >> 4) * 8
-  uint32_t qf[KS][4], dof[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int a_off = (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(qf[kk], smem_addr(qs + a_off));
-    ldmatrix_x4(dof[kk], smem_addr(dos + a_off));
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::own_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(base + L::full(st), 1);
+      mbar_init(base + L::empty(st), 4 * kGroups);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kGroups) {
+    // producer: Q and dO of the CTA's queries once, then K and V of each
+    // key tile into the ring
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 128 * kGroups) return;
+    mbar_arrive_tx(base + L::own_full(), 2 * L::OWN);
+    tma_rows<D, kRows>(base + L::own(0), &tm_q, base + L::own_full(), q0, head);
+    tma_rows<D, kRows>(base + L::own(1), &tm_do, base + L::own_full(), q0, head);
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int i = kt - kt_begin, st = i % kStages;
+      const uint32_t full = base + L::full(st);
+      mbar_wait(base + L::empty(st), ((i / kStages) & 1) ^ 1);
+      mbar_arrive_tx(full, 2 * L::TILE);
+      tma_rows<D, BK>(base + L::tile(st, 0), &tm_k, full, kt * BK, head);
+      tma_rows<D, BK>(base + L::tile(st, 1), &tm_v, full, kt * BK, head);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns queries qw0 .. qw0 + 63, its warp 16 of them
+  setmaxnreg_inc<kConsumerRegs>();
+  // the warpgroup, known to be warp-uniform: its descriptors live in
+  // uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int qwarp = qw0 + 16 * warp;
+  const int64_t rows = (int64_t)head * s_len;
   // rows g and g + 8: lse in log2 units and delta (0 past S: not stored)
   float lse2[2], del[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = qw + g + 8 * r;
+    const int row = qwarp + g + 8 * r;
     lse2[r] = row < s_len ? lse[rows + row] * kLog2e : 0.f;
     del[r] = row < s_len ? delta[rows + row] : 0.f;
   }
-
-  float dqa[DT][4];
+  float dqa[D / 2];
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-  }
+  for (int n = 0; n < D / 2; ++n) dqa[n] = 0.f;
+  mbar_wait(base + L::own_full(), 0);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < kt_end) stage_kv(kt + 1, st ^ 1);
-    cp_async_commit();
+    const int i = kt - kt_begin, st = i % kStages;
+    mbar_wait(base + L::full(st), (i / kStages) & 1);
     const int k0 = kt * BK;
-    // none of the warp's 16 rows sees a key of this tile
-    if (qw >= s_len || k0 > qw + 15 ||
-        (window > 0 && k0 + BK - 1 <= qw - window)) {
-      continue;
-    }
-    const __nv_bfloat16* ks = stages + st * KSTAGE;
-    const __nv_bfloat16* vs = ks + BK * LD;
+    // a query of the warpgroup sees a key of the tile
+    if (qw0 < s_len && k0 <= qw0 + 63 &&
+        !(window > 0 && k0 + BK - 1 <= qw0 - window)) {
+      const uint32_t ks = base + L::tile(st, 0), vs = base + L::tile(st, 1);
 
-    // S = Q K^T and dP = dO V^T, B fragments from row-major K and V
-    float s[NT][4], dp[NT][4];
+      // S = Q K^T and dP = dO V^T, both operands from shared memory
+      float s[BK / 2], dp[BK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        const int b_off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                          kk * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(ks + b_off));
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
-        ldmatrix_x4(b, smem_addr(vs + b_off));
-        mma_bf16(dp[2 * jp], dof[kk], b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], dof[kk], b[2], b[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(s, desc_k<kRows>(base + L::own(0), 64 * wg, kk),
+                 desc_k<BK>(ks, 0, kk), kk);
       }
-    }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dp, desc_k<kRows>(base + L::own(1), 64 * wg, kk),
+                 desc_k<BK>(vs, 0, kk), kk);
+      }
+      wgmma_commit();
 
-    // dS, rows (queries) g and g + 8, columns (keys) 8j + 2t4 + {0, 1};
-    // keys past S lie past every real query, so the causal test masks them
-    const bool edge = k0 + BK - 1 > qw || (window > 0 && k0 <= qw + 15 - window);
-    uint32_t dsa[NT / 2][4];
+      // P in place of S: rows (queries) g and g + 8, columns (keys)
+      // 8j + 2t4 + {0, 1}; keys past S lie past every real query, so the
+      // causal test masks them
+      wgmma_wait<1>();
+      pin(s);
+      const bool edge = k0 + BK - 1 > qwarp || (window > 0 && k0 <= qwarp + 15 - window);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float dsv[4];
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = ex2(fmaf(s[j][e], scale_log2, -lse2[r]));
-        if (edge && hidden(k0 + 8 * j + 2 * t4 + (e & 1), qw + g + 8 * r, window,
-                           s_len)) {
-          p = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = ex2(fmaf(s[4 * j + e], scale_log2, -lse2[r]));
+          if (edge && hidden(k0 + 8 * j + 2 * t4 + (e & 1), qwarp + g + 8 * r, window,
+                             s_len)) {
+            p = 0.f;
+          }
+          s[4 * j + e] = p;
         }
-        dsv[e] = p * (dp[j][e] - del[r]);
       }
-      dsa[j / 2][(j & 1) * 2] = bf16_pair(dsv[0], dsv[1]);
-      dsa[j / 2][(j & 1) * 2 + 1] = bf16_pair(dsv[2], dsv[3]);
-    }
 
-    // dQ += dS K: K's B fragments by ldmatrix.x4.trans, as V's in the forward
+      // dS = P (dP - delta), rounded to bf16 as the A operand of dQ += dS K
+      wgmma_wait<0>();
+      pin(dp);
+      uint32_t dsa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int dpr = 0; dpr < DT / 2; ++dpr) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, smem_addr(ks + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
-                                       dpr * 16 + (lane >> 4) * 8));
-        mma_bf16(dqa[2 * dpr], dsa[kk], b[0], b[1]);
-        mma_bf16(dqa[2 * dpr + 1], dsa[kk], b[2], b[3]);
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - del[e >> 1]);
+        }
       }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) to_a(dsa, dp, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_t(dqa, dsa[kk], desc_mn<BK>(ks, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dqa);
+      pin(dsa);
     }
+    if (lane == 0) mbar_arrive(base + L::empty(st));
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = qw + g + 8 * r;
+    const int row = qwarp + g + 8 * r;
     if (row >= s_len) continue;
-    __nv_bfloat16* out = dq + head + (int64_t)row * D + 2 * t4;
+    __nv_bfloat16* out = dq + (rows + row) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(out + 8 * n) =
-          bf16_pair(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
+          bf16_pair(dqa[4 * n + 2 * r] * scale, dqa[4 * n + 2 * r + 1] * scale);
     }
   }
 }
@@ -779,30 +860,81 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda); null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// x [bh, s, d] bf16 as a 3D tensor map whose box is 32 columns by ``rows``
+// rows of one head, 64-byte swizzle; rows past s read as zeros, so a tile
+// past S never reads the next head's rows
+cudaError_t tensor_map(CUtensorMap* map, const void* x, int bh, int s, int d,
+                       int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
+                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         void* dq, void* dk, void* dv, float* delta, int bh,
                         int s, int window, float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr size_t smem_kv = smem_dkdv_bf16<D>(), smem_q = smem_dq_bf16<D>();
-  cudaError_t e = allow_smem(flash_bwd_dkdv_bf16<D>, smem_kv);
+  constexpr int B = other_rows<D>();
+  constexpr size_t smem_kv = Smem<D, true>::bytes, smem_q = Smem<D, false>::bytes;
+  // each tensor with boxes of the CTA's own rows and of the staged tiles'
+  CUtensorMap own[4], tile[4];
+  const void* x[4] = {q, k, v, dout};
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+    e = tensor_map(&own[i], x[i], bh, s, D, kRows);
+    if (e == cudaSuccess) e = tensor_map(&tile[i], x[i], bh, s, D, B);
+  }
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dkdv_bf16<D>, smem_kv);
   if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_bf16<D>, smem_q);
   if (e == cudaSuccess) e = launch_delta<bf, D>(o, dout, delta, (int64_t)bh * s, stream);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((s + kTile - 1) / kTile), static_cast<unsigned>(bh));
-  const bf* qb = static_cast<const bf*>(q);
-  const bf* kb = static_cast<const bf*>(k);
-  const bf* vb = static_cast<const bf*>(v);
-  const bf* db = static_cast<const bf*>(dout);
-  flash_bwd_dkdv_bf16<D><<<grid, 32 * kWarps, smem_kv, stream>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), s,
-      window, scale, scale * kLog2e);
+  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((s + kRows - 1) / kRows));
+  flash_bwd_dkdv_bf16<D><<<grid, kThreadsTc, smem_kv, stream>>>(
+      tile[0], own[1], own[2], tile[3], lse, delta, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), s, window, scale, scale * kLog2e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_bf16<D><<<grid, 32 * kWarps, smem_q, stream>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf*>(dq), s, window, scale,
-      scale * kLog2e);
+  flash_bwd_dq_bf16<D><<<grid, kThreadsTc, smem_q, stream>>>(
+      own[0], tile[1], tile[2], own[3], lse, delta, static_cast<bf*>(dq), s, window,
+      scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -823,6 +955,18 @@ bool aligned16(const void* p) {
 }
 
 }  // namespace
+
+// Dynamic shared memory in bytes of the bf16 dK/dV (dq_pass 0) or dQ
+// (dq_pass 1) kernel at head dim d; -1 for another head dim.
+extern "C" int flash_attention_bwd_bf16_smem(int d, int dq_pass) {
+  switch (d) {
+    case 32: return static_cast<int>(dq_pass ? Smem<32, false>::bytes : Smem<32, true>::bytes);
+    case 64: return static_cast<int>(dq_pass ? Smem<64, false>::bytes : Smem<64, true>::bytes);
+    case 96: return static_cast<int>(dq_pass ? Smem<96, false>::bytes : Smem<96, true>::bytes);
+    case 128: return static_cast<int>(dq_pass ? Smem<128, false>::bytes : Smem<128, true>::bytes);
+    default: return -1;
+  }
+}
 
 // Launches one backward pass on ``stream``: the delta pass, then dK/dV,
 // then dQ.  Device pointers q, k, v, do (the output's gradient) and dq,

@@ -1,7 +1,9 @@
-// Device helpers the flash-attention kernels share (flash_attn.cu,
-// flash_attn_bwd.cu): async copies into shared memory, ldmatrix fragment
-// loads, the bf16 mma.sync product, bf16 packing and ex2.  Each source
-// includes its own copy (an anonymous namespace: no symbol is exported).
+// Device helpers of the flash-attention kernels: async copies into shared
+// memory, ldmatrix fragment loads and the bf16 mma.sync product (the
+// forward, flash_attn.cu), shared addresses, bf16 packing and ex2 (both
+// directions; the backward's wgmma and TMA helpers are in hopper.cuh).
+// Each source includes its own copy (an anonymous namespace: no symbol is
+// exported).
 
 #pragma once
 

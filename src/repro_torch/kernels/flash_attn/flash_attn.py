@@ -9,9 +9,10 @@ PyTorch versions (``ref.py``); CUDA tensors launch the kernel or raise.  The
 kernels take float32 or bf16 and a head dim of 32, 64, 96 or 128 (every
 head dim the repo's configurations have), and any S; ``bq`` and ``bk`` are
 the reference's block sizes and keep its contract (S a multiple of both).
-bf16 runs on the tensor cores (``mma.sync``), float32 on the CUDA cores in
-true float32; ``ref.attention_limit`` and ``ref.attention_bwd_limit``
-state how far each may be from the plain version.
+bf16 runs on the tensor cores (the forward on ``mma.sync``, the backward on
+``wgmma`` with TMA loads), float32 on the CUDA cores in true float32;
+``ref.attention_limit`` and ``ref.attention_bwd_limit`` state how far each
+may be from the plain version.
 
 Each dispatch is an operator, so tools that trace the port see one call
 with the kernel's cost: on fake tensors (``FakeTensorMode``) it only shapes

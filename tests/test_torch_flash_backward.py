@@ -345,11 +345,12 @@ def cuda_device():
 
 def _card_case(device, s, d, window, dtype, bh=3, seed=0):
     """q, k, v, dO on the card, o (float32) and lse from the forward
-    kernel."""
+    kernel (which takes any S; ``bq = bk = 1`` only passes the reference's
+    block-multiple check)."""
     rng = np.random.default_rng(seed + s + d + (window or 0))
     q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
         np.float32)).to(device, dtype) for _ in range(4))
-    o, lse = flash_attention_fwd(q, k, v, window=window, bq=32, bk=32)
+    o, lse = flash_attention_fwd(q, k, v, window=window, bq=1, bk=1)
     return q, k, v, o, lse, do
 
 
@@ -361,20 +362,11 @@ def _within(got, want, args, window, dtype):
     return all(rms_ratio(g, w) <= BWD_BF16_RMS_LIMIT for g, w in zip(got, want))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("window", [None, 40, 100])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("s", [64, 288, 1024])
-def test_cuda_backward_matches_plain(cuda_device, s, d, dtype, window,
-                                     monkeypatch):
-    """Every head dim, type and window, S ragged against the tiles (288) or
-    not: the forward's lse within 2e-5 (1 + |lse|) of the plain version's,
+def _check_backward(args, window, dtype):
+    """The forward's lse within 2e-5 (1 + |lse|) of the plain version's,
     one backward launch, and dq, dk, dv within ``attention_bwd_limit``
     (float32) or ``BWD_BF16_RMS_LIMIT`` (bf16) of ``attention_bwd_ref`` on
     the same inputs."""
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    args = _card_case(cuda_device, s, d, window, dtype)
     q, k, v, o, lse, do = args
     want_lse = attention_lse_ref(q, k, v, window=window)
     assert bool(((lse - want_lse).abs() <= 2e-5 * (1 + want_lse.abs())).all())
@@ -389,11 +381,37 @@ def test_cuda_backward_matches_plain(cuda_device, s, d, dtype, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("window", [None, 40, 100, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_backward_is_deterministic(cuda_device, dtype, window):
-    """Two runs on the same inputs give the same bits (no atomics)."""
-    args = _card_case(cuda_device, 512, 64, window, dtype, bh=4)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("s", [64, 129, 200, 288, 1024])
+def test_cuda_backward_matches_plain(cuda_device, s, d, dtype, window,
+                                     monkeypatch):
+    """Every head dim, type and window (128: on the bf16 kernel's tile
+    edges), S ragged against the 128- and 64-row tiles (129, 200, 288) or
+    not: :func:`_check_backward`."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    _check_backward(_card_case(cuda_device, s, d, window, dtype), window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,window", [(28, None), (25, 2048)])
+def test_cuda_backward_at_training_shape(cuda_device, bh, window, monkeypatch):
+    """qwen2-0.5b's training shape (BH 28, S 4,096, D 64, bf16) and
+    hymba-1.5b's window of 2,048 at S 4,096: :func:`_check_backward`."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args = _card_case(cuda_device, 4096, 64, window, torch.bfloat16, bh=bh)
+    _check_backward(args, window, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d", [(4, 512, 64), (3, 200, 128), (28, 4096, 64)])
+@pytest.mark.parametrize("window", [None, 100, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_is_deterministic(cuda_device, dtype, window, bh, s, d):
+    """Two runs on the same inputs give the same bits (no atomics), S on
+    the tiles or ragged, up to qwen2-0.5b's training shape."""
+    args = _card_case(cuda_device, s, d, window, dtype, bh=bh)
     first = flash_attention_backward(*args, window=window)
     second = flash_attention_backward(*args, window=window)
     torch.cuda.synchronize()
@@ -489,3 +507,90 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     header = tmp_path / "flash_attn/csrc/tensor_core.cuh"
     header.write_text(header.read_text() + "\n")
     assert _build._library_path() != before
+
+
+def test_library_path_follows_the_hopper_header(tmp_path, monkeypatch):
+    """The backward's wgmma, TMA and mbarrier helpers live in
+    ``csrc/hopper.cuh``: an edit of it alone names another library."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    for src in _build.sources() + sorted(_build._KERNELS.glob("*/csrc/*.cuh")):
+        dst = tmp_path / src.relative_to(_build._KERNELS)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, dst)
+    monkeypatch.setattr(_build, "_KERNELS", tmp_path)
+    before = _build._library_path()
+    header = tmp_path / "flash_attn/csrc/hopper.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build._library_path() != before
+
+
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651719flash_bwd_dkdv_bf16ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651719flash_bwd_dkdv_bf16ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 896 bytes cmem[0]
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651719flash_bwd_dkdv_bf16ILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff'
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651719flash_bwd_dkdv_bf16ILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651719flash_bwd_dkdv_bf16ILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiff
+    88 bytes stack frame, 84 bytes spill stores, 84 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem, 896 bytes cmem[0]
+ptxas info    : Compiling entry function 'pred_filter_kernel' for 'sm_90a'
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
+"""
+
+_SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN50_GLOBAL__N__525bf55f_17_flash_attn_bwd_cu_41c6651717flash_bwd_dq_bf16ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiff
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                        /* 0x00000a00ff017b82 */
+        /*0f30*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ; /* 0x01e00000041879f0 */
+        /*0f40*/              @P0  UTMALDG.3D [UR8], [UR14] ;                    /* 0x00000008080075b4 */
+        /*0f50*/             @!UP0 UTMALDG.3D [UR16], [UR14] ;                   /* 0x00000008080075b4 */
+\t\tFunction : _ZN12_GLOBAL__N_120flash_attention_bf16ILi64EfEEvPKT_
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;          /* 0x0000000c0804723c */
+"""
+
+
+def test_ptxas_resources_by_kernel():
+    """``_build.resources`` reads each kernel's registers, stack, spills
+    and static shared memory from ``ptxas -v`` and keeps the warnings that
+    name it (a serialized wgmma pipeline) under the demangled name."""
+    from repro_torch.kernels._build import resources
+
+    got = resources(_PTXAS)
+    assert got["flash_bwd_dkdv_bf16<64>"] == {
+        "warnings": [], "stack": 0, "spill_stores": 0, "spill_loads": 0,
+        "registers": 168, "static_smem": 0}
+    big = got["flash_bwd_dkdv_bf16<128>"]
+    assert (big["stack"], big["spill_stores"], big["spill_loads"],
+            big["registers"], big["static_smem"]) == (88, 84, 84, 168, 1024)
+    assert len(big["warnings"]) == 1 and "serialized" in big["warnings"][0]
+    assert got["pred_filter_kernel"]["registers"] == 40
+
+
+def test_sass_counts_by_kernel():
+    """``_build.sass_counts`` counts opcodes per function of ``cuobjdump
+    -sass`` output, predicated or not, and tells HGMMA from HMMA."""
+    from repro_torch.kernels._build import sass_counts
+
+    got = sass_counts(_SASS, ("HGMMA", "UTMALDG", "HMMA"))
+    assert got["flash_bwd_dq_bf16<64>"] == {"HGMMA": 1, "UTMALDG": 2, "HMMA": 0}
+    # two template arguments: not shortened
+    other = [k for k in got if "flash_attention_bf16" in k]
+    assert len(other) == 1 and got[other[0]]["HMMA"] == 1
+
+
+def test_bf16_backward_smem_entry_point():
+    """``chip_smoke.py`` reads the bf16 kernels' dynamic shared memory
+    through ``flash_attention_bwd_bf16_smem(int d, int dq_pass)``, which
+    answers every head dim the launcher takes and -1 for others."""
+    src = (SRC / "flash_attn_bwd.cu").read_text()
+    fn = src[src.index('extern "C" int flash_attention_bwd_bf16_smem('):]
+    fn = fn[:fn.index("\n}\n")]
+    assert fn[fn.index("(") + 1:fn.index(")")] == "int d, int dq_pass"
+    assert tuple(map(int, re.findall(r"case (\d+):", fn))) == HEAD_DIMS
+    assert "default: return -1;" in fn
