@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build       — compiles the CUDA kernels from ``src/repro_torch/kernels``,
                  then prints ``k5_bwd_resources`` (registers, spill bytes
                  and dynamic shared memory of each bf16 instance of K5's
-                 backward kernels, from ``ptxas -v`` in the build
+                 backward kernels and each float32 instance of its forward
+                 and backward kernels, from ``ptxas -v`` in the build
                  directory, with ptxas's warnings about them) and
                  ``k5_bwd_sass`` (their ``HGMMA``, ``UTMALDG`` and
                  ``HMMA`` instructions in ``cuobjdump -sass`` of the
@@ -47,7 +48,8 @@ Phases, each printing one JSON line:
                  q3's order keys; timed also on random values) and
                  ``mha_flash`` (K5, the attention widths
                  of llama3.2-3b and hymba-1.5b at S = 4,096 in bf16, and
-                 llama3.2-3b at S = 1,024 in float32).  Each answer is checked
+                 llama3.2-3b at S = 1,024 and qwen2-0.5b's training widths
+                 at S = 4,096 in float32).  Each answer is checked
                  (the numpy mask, ``torch.isin``, the plain attention within
                  ``attention_limit``); then each kernel against its plain
                  version with times, bound and the library yardstick
@@ -65,7 +67,9 @@ Phases, each printing one JSON line:
                  each of dq, dk, dv within ``BWD_BF16_RMS_LIMIT``, which a
                  control that rounds the scores must exceed; bit-equal
                  over two runs; timed beside the plain version, SDPA's
-                 backward and its bound (10 D flops per unmasked pair).
+                 backward and its bound (10 D flops per unmasked pair; in
+                 float32 three TF32 products each, 30 D at the TF32 rate,
+                 with the CUDA cores' 10 D at 67 TFLOP/s beside it).
 7. serve       — run between phases 5 and 6 on phase 5's catalog: q3 and
                  q12 through ``LineageService`` (``launch/lineage_serve.py``'s
                  workload: 4 clients, 64 requests in pages of 16, Zipf 1.5
@@ -165,7 +169,17 @@ Phases, each printing one JSON line:
                  microbatch's gradients through K5's autograd node (the
                  forward and backward kernels) against the plain attention
                  under autograd: every parameter within RMS ratio 5e-2,
-                 non-zero q/k/v gradients.  ``launch/train.py``'s main: 6
+                 non-zero q/k/v gradients.  qwen2-0.5b in float32
+                 (``dtype="float32"``): ``make_train_step`` with remat, B =
+                 2 at S = 4,096, one microbatch, a warm-up step and a timed
+                 one (seconds, peak memory; K5's float32 forward 48
+                 launches and its backward 24, the plain attention raising
+                 on the card), then the same gradient check in float32
+                 at RMS ratio 2e-5; K5's float32 kernels on the q, k, v
+                 the warm-up step gave its layer of the largest std(q)
+                 std(k), within the float32 limits of the plain version
+                 and of the float64 answer.
+                 ``launch/train.py``'s main: 6
                  steps of batch 4 at S = 512, a checkpoint after the sixth.
                  Then the warm-up step's first K5 launch against the plain
                  version, timed beside SDPA, and the backward kernel on its
@@ -235,10 +249,12 @@ import torch  # noqa: E402
 
 # H100 SXM peaks from NVIDIA's data sheet (700 W): HBM bandwidth, the
 # float32 rate outside the tensor cores (also used for the int32 compares)
-# and the dense bf16 tensor-core rate
+# and the dense bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
+# K5's float32 kernels run each product as three TF32 products (split TF32)
 SOURCE = "src/repro_torch/kernels/pred_filter/csrc/pred_filter.cu"
 # the TPU kernels' pallas_call sites: pred_filter_batch (:272) has two
 REPLACES = {"cmp": "src/repro/kernels/pred_filter/pred_filter.py:293",
@@ -256,6 +272,9 @@ ATTN_CASES = (
      2048),
     ("llama3.2-3b", "src/repro/configs/llama3_2_3b.py", "float32", 1024, 24,
      128, None),
+    # qwen2-0.5b's training widths: B 2 x 14 heads
+    ("qwen2-0.5b", "src/repro/configs/qwen2_0_5b.py", "float32", 4096, 28, 64,
+     None),
 )
 # kernel vs plain attention: ``attention_limit`` (kernels/flash_attn/ref.py)
 # per element; float32 2e-5 + 2e-5 |want|; bf16 one ulp of the value (2**-7
@@ -1814,8 +1833,12 @@ def phase_entry_kernels(inp, secs, smi: str) -> dict:
             time_ms(lambda: attention_ref(qf, kf, vf, window=window),
                     reps=5, inner=1),
             nbytes=4 * h * s * d * elem,
-            nops=4 * h * d * attention_pairs(s, window),
-            ops_per_s=BF16_FLOPS_PER_S if dt == "bfloat16" else ALU_OPS_PER_S,
+            # float32: three TF32 products a product, the CUDA cores' bound
+            # beside it
+            nops=(4 if dt == "bfloat16" else 12) * h * d * attention_pairs(s, window),
+            ops_per_s=BF16_FLOPS_PER_S if dt == "bfloat16" else TF32_FLOPS_PER_S,
+            bound_cuda_cores_ms=(None if dt == "bfloat16" else 4 * h * d * attention_pairs(
+                s, window) / ALU_OPS_PER_S * 1e3),
             library_ms=time_ms(sdpa, reps=10, inner=2), config=cfg,
             library_max_abs_err=lib_err, library_share_of_limit=lib_share,
             library_rms_ratio=lib_rms,
@@ -1927,42 +1950,50 @@ def check_k5_calls(path: str, smi: str) -> tuple:
     return done
 
 
-# the bf16 instances of K5's backward kernels: (head dim, dQ pass)
-K5_BWD_BF16 = {f"flash_bwd_{p}_bf16<{d}>": (d, p == "dq") for p in ("dkdv", "dq")
-               for d in (32, 64, 96, 128)}
+# the wgmma instances of K5's kernels: the bf16 backward and the float32
+# forward and backward, each with its shared-memory entry point's arguments
+# (head dim, and the pass: 0 dK/dV, 1 dQ)
+K5_WGMMA = {**{f"flash_bwd_{p}_{t}<{d}>": (f"flash_attention_bwd_{t}_smem", d, p == "dq")
+               for t in ("bf16", "f32") for p in ("dkdv", "dq") for d in (32, 64, 96, 128)},
+            **{f"flash_attention_f32<{d}>": ("flash_attention_f32_smem", d, None)
+               for d in (32, 64, 96, 128)}}
 
 
 def phase_k5_bwd_build(lib, smi: str) -> None:
-    """Resources and SASS of the bf16 instances of K5's backward kernels:
-    registers, stack and spill bytes from ``ptxas -v`` (kept beside the
-    library), their dynamic shared memory from the library; the count of
-    ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and ``HMMA`` (mma.sync) in
-    each.  Each must hold wgmma and TMA loads and no mma.sync, where the
-    toolkit has ``cuobjdump``."""
+    """Resources and SASS of K5's wgmma kernels (the bf16 backward, the
+    float32 forward and backward): registers, stack and spill bytes from
+    ``ptxas -v`` (kept beside the library), their dynamic shared memory
+    from the library; the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
+    loads) and ``HMMA`` (mma.sync) in each.  Each must hold wgmma and TMA
+    loads and no mma.sync, where the toolkit has ``cuobjdump``."""
     import ctypes
 
     from repro_torch.kernels import _build
 
-    smem = _build.launcher("flash_attention_bwd_bf16_smem", ctypes.c_int, ctypes.c_int)
+    def smem(entry, d, dq):
+        if dq is None:
+            return _build.launcher(entry, ctypes.c_int)(d)
+        return _build.launcher(entry, ctypes.c_int, ctypes.c_int)(d, int(dq))
+
     res = _build.resources((lib.parent / _build.PTXAS_LOG).read_text())
-    missing = [k for k in K5_BWD_BF16 if k not in res]
-    rec = {k: {**res.get(k, {}), "dynamic_smem": smem(d, int(dq))}
-           for k, (d, dq) in K5_BWD_BF16.items()}
+    missing = [k for k in K5_WGMMA if k not in res]
+    rec = {k: {**res.get(k, {}), "dynamic_smem": smem(*args)}
+           for k, args in K5_WGMMA.items()}
     emit({"phase": "k5_bwd_resources", "kernels": rec, "nvidia_smi": smi})
     text = _build.sass(lib)
     counts = None if text is None else _build.sass_counts(
         text, ("HGMMA", "UTMALDG", "HMMA"))
     emit({"phase": "k5_bwd_sass", "nvidia_smi": smi,
-          "kernels": None if counts is None else {k: counts.get(k) for k in K5_BWD_BF16},
+          "kernels": None if counts is None else {k: counts.get(k) for k in K5_WGMMA},
           "note": "no cuobjdump in the toolkit" if counts is None else None})
     if missing:
         raise AssertionError(f"ptxas -v printed nothing for {missing}")
     if counts is not None:
-        wrong = {k: counts.get(k) for k in K5_BWD_BF16
+        wrong = {k: counts.get(k) for k in K5_WGMMA
                  if not counts.get(k) or not counts[k]["HGMMA"]
                  or not counts[k]["UTMALDG"] or counts[k]["HMMA"]}
         if wrong:
-            raise AssertionError(f"K5 backward not on wgmma and TMA alone: {wrong}")
+            raise AssertionError(f"K5 kernels not on wgmma and TMA alone: {wrong}")
 
 
 def k5_launches() -> int:
@@ -2111,8 +2142,11 @@ def k5_backward(label: str, q, k, v, window, smi: str,
     do4 = do.view(1, bh, s, d)
     # q, k, v, dO, dq, dk, dv in q's type; o and lse in float32
     nbytes = (7 * q.element_size() + 4) * bh * s * d + 4 * bh * s
-    nops = 10 * d * bh * attention_pairs(s, window)
-    peak = BF16_FLOPS_PER_S if bf16 else ALU_OPS_PER_S
+    # float32: three TF32 products a product (the CUDA cores' bound beside)
+    nops = (10 if bf16 else 30) * d * bh * attention_pairs(s, window)
+    peak = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
+    if not bf16:
+        rec["bound_cuda_cores_ms"] = 10 * d * bh * attention_pairs(s, window) / ALU_OPS_PER_S * 1e3
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": nops / peak * 1e3}
     rec.update(
         backward_kernel_ms=time_ms(lambda: flash_attention_backward(*args, window=window),
@@ -2533,9 +2567,14 @@ TRAIN_TIMED = 5  # after one warm-up step
 TRAIN_DOCS = 2000
 TRAIN_CKPT_AFTER = 3  # saved after this step, restored, the next step replayed
 TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+TRAIN_F32_B = 2  # the float32 step: one microbatch of phase 11's
 # RMS(K5 route - plain route) / RMS(plain route) of every parameter's
 # gradient: the reference's bf16 tolerance, as in phase 10
 GRAD_RMS_LIMIT = 5e-2
+# the float32 step's: K5's float32 kernels are held per element to 2e-5 of
+# a spread (``attention_bwd_limit``); the float32 routes differ only in
+# the order and splitting of their float32 sums
+GRAD_RMS_LIMIT_F32 = 2e-5
 CKPT_LOSS_RTOL = 1e-3
 # 6 steps, one checkpoint: 12 steps took phase 11 past 100 s
 TRAIN_MAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "4",
@@ -2633,12 +2672,13 @@ def timed_train_step(step, model, opt, batch) -> tuple:
             k5_bwd_launches() - before_bwd)
 
 
-def train_grad_check(model, batch, smi: str) -> dict:
+def train_grad_check(model, batch, smi: str, phase: str = "train_grad_check",
+                     limit: float = GRAD_RMS_LIMIT) -> dict:
     """One microbatch through ``loss_fn`` under autograd twice, the same
     weights and batch: the K5 route (``mha_flash``, the FlashAttention
     node: the forward and backward kernels) and the plain route
     (``mha_ref`` under autograd).  Every
-    parameter's gradient within ``GRAD_RMS_LIMIT``; the attention weights
+    parameter's gradient within ``limit`` (RMS ratio); the attention weights
     and biases must have non-zero gradients on the K5 route."""
     from repro_torch.kernels.flash_attn import ops, rms_ratio
     from repro_torch.models import layers
@@ -2672,7 +2712,8 @@ def train_grad_check(model, batch, smi: str) -> dict:
             worst[kind] = (r, name)
         if kind in ("wq", "wk", "wv", "bq", "bk", "bv") and not bool(a.abs().max() > 0):
             zero.append(name)
-    rec = {"phase": "train_grad_check", "model": TRAIN_ARCH,
+    rec = {"phase": phase, "model": TRAIN_ARCH,
+           "dtype": str(model.embed.dtype).split(".")[-1],
            "microbatch": TRAIN_B // TRAIN_ACCUM, "S": TRAIN_S, "remat": True,
            "loss_k5": loss_k5, "loss_plain": loss_plain,
            "k5_launches": launches, "k5_backward_launches": bwd_launches,
@@ -2680,11 +2721,11 @@ def train_grad_check(model, batch, smi: str) -> dict:
            "plain_route_s": plain_s,
            "worst_rms_ratio_by_kind": {k: v[0] for k, v in sorted(worst.items())},
            "worst_leaf_by_kind": {k: v[1] for k, v in sorted(worst.items())},
-           "rms_limit": GRAD_RMS_LIMIT, "zero_attention_grads": zero,
+           "rms_limit": limit, "zero_attention_grads": zero,
            "nvidia_smi": smi}
     emit(rec)
     del g_k5, g_plain
-    if zero or max(v[0] for v in worst.values()) > GRAD_RMS_LIMIT:
+    if zero or max(v[0] for v in worst.values()) > limit:
         raise AssertionError(f"K5-route gradients: {rec}")
     if launches != 2 * model.cfg.n_layers or bwd_launches != model.cfg.n_layers:
         raise AssertionError(f"gradient check launched K5 {launches} times, "
@@ -2765,6 +2806,149 @@ def train_main(smi: str) -> dict:
             or not any(line.startswith("[lineage] doc") for line in printed)):
         raise AssertionError("launch/train: bad losses or no [lineage] line")
     return rec
+
+
+def capture_attention(calls: list):
+    """While on, every ``mha_flash`` call of the model appends its
+    ``[B, S, H, D]`` q, k, v (detached) to ``calls``; returns the function
+    that turns it off."""
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.models import layers
+
+    def recording(q, k, v, window=None):
+        calls.append((q.detach(), k.detach(), v.detach(), window))
+        return ops.mha_flash(q, k, v, window=window)
+
+    layers.mha_flash = recording
+
+    def off():
+        layers.mha_flash = ops.mha_flash
+    return off
+
+
+def largest_scale(calls: list) -> dict:
+    """Of the ``capture_attention`` calls of one forward (a call a layer),
+    the layer of the largest std(q) std(k): its index, every layer's
+    product, and its q, k, v folded to ``[B H, S, D]``."""
+    from repro_torch.kernels.flash_attn.ops import _fold
+
+    scales = [float(q.std() * k.std()) for q, k, _, _ in calls]
+    layer = int(np.argmax(scales))
+    q, k, v, window = calls[layer]
+    calls.clear()
+    return {"layer": layer, "scales": scales, "window": window,
+            "qkv": tuple(_fold(t) for t in (q, k, v))}
+
+
+def k5_f32_at_step_scale(pick: dict, smi: str) -> dict:
+    """K5's float32 forward and backward on the q, k, v that a float32
+    qwen2 step gave its layer of the largest std(q) std(k)
+    (:func:`largest_scale`; dO a seeded draw of std 1): within
+    ``attention_limit`` / ``attention_bwd_limit`` of the plain float32
+    version and of the float64 answer (``attention_exact``).  These
+    launches are checks, not the path's."""
+    from repro_torch.kernels.flash_attn import (attention_bwd_limit, attention_bwd_ref,
+                                                attention_exact, attention_limit,
+                                                attention_lse_ref, attention_ref,
+                                                flash_attention, flash_attention_backward)
+
+    q, k, v = pick.pop("qkv")
+    window, layer, scales = pick["window"], pick["layer"], pick["scales"]
+
+    def share(got, want, lim):
+        return float(((got.double() - want.double()).abs() / lim).max())
+
+    o64, lse64 = attention_exact(q, k, v, window=window)
+    want = attention_ref(q, k, v, window=window)
+    lim = attention_limit(q, k, v, want, window=window)
+    got = flash_attention(q, k, v, window=window)
+    fwd = {"against_float32": share(got, want, lim), "against_float64": share(got, o64, lim)}
+    del got, lim
+    gen = torch.Generator(device=q.device).manual_seed(11)
+    do = torch.randn(q.shape, generator=gen, device=q.device)
+    args = (q, k, v, want, attention_lse_ref(q, k, v, window=window), do)
+    lims = attention_bwd_limit(*args, window=window)
+    got = flash_attention_backward(*args, window=window)
+    wants = (attention_bwd_ref(*args, window=window),
+             attention_bwd_ref(q.double(), k.double(), v.double(), o64, lse64,
+                               do.double(), window=window))
+    bwd = {key: max(share(g, w, x) for g, w, x in zip(got, ws, lims))
+           for key, ws in zip(("against_float32", "against_float64"), wants)}
+    s_max = float(torch.einsum("bqd,bkd->bqk", q[:1], k[:1]).abs().max()
+                  / q.shape[-1] ** 0.5)
+    rec = {"phase": "k5_f32_step_scale", "model": TRAIN_ARCH, "layer": layer,
+           "shape": list(q.shape), "window": window,
+           "q_std": float(q.std()), "k_std": float(k.std()), "v_std": float(v.std()),
+           "max_abs_score_head0": s_max, "std_products_by_layer": scales,
+           "forward_share_of_limit": fwd, "backward_worst_share_of_limit": bwd,
+           "nvidia_smi": smi}
+    emit(rec)
+    del got, wants, lims, args, o64, lse64, want, q, k, v
+    free_card()
+    if max(list(fwd.values()) + list(bwd.values())) > 1:
+        raise AssertionError(f"K5 float32 at the step's scale: {rec}")
+    return rec
+
+
+def train_float32(pipe, smi: str) -> dict:
+    """qwen2-0.5b in float32 (``dtype="float32"``, every weight float32):
+    ``make_train_step`` with remat on one microbatch of B = 2 at S = 4,096,
+    a warm-up step and a timed one (host seconds to a synchronise, peak
+    memory) during which the plain attention raises on the card; K5's
+    float32 forward launches (the forward and remat's recompute) and its
+    backward's counted, then :func:`train_grad_check` in float32.  Returns
+    the launches of the phase's float32 work and, for
+    :func:`k5_f32_at_step_scale`, the warm-up step's layer of the largest
+    scale (:func:`largest_scale`)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = replace(get(TRAIN_ARCH), dtype="float32", remat=True, accum_steps=1)
+    L = cfg.n_layers
+    before, before_bwd = k5_launches(), k5_bwd_launches()
+    model = Model.init(cfg, seed=0, device="cuda", dtype=torch.float32)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    opt = adamw.init(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    batch = {k: v[:TRAIN_F32_B] for k, v in train_batch(pipe, 0).items()}
+    calls = []
+    off = capture_attention(calls)
+    try:
+        opt, _, warm_s, _, _ = timed_train_step(step, model, opt, batch)
+    finally:
+        off()
+    pick = largest_scale(calls[:L])  # the forward's; remat's recompute repeats them
+    calls.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_off_card():
+        opt, m, secs, n, nb = timed_train_step(step, model, opt, batch)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"phase": "train_f32_step", "model": TRAIN_ARCH, "dtype": "float32",
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "B": TRAIN_F32_B, "S": TRAIN_S, "accum_steps": 1, "remat": True,
+           "warmup_s": warm_s, "seconds": secs, "tokens_per_s": TRAIN_F32_B * TRAIN_S / secs,
+           "max_memory_allocated": peak, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]), "k5_launches": n,
+           "want_k5_launches": 2 * L, "k5_backward_launches": nb,
+           "want_k5_backward_launches": L, "plain_attention_off_card": True,
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+        raise AssertionError(f"float32 train step: {rec}")
+    if n != 2 * L or nb != L or rec["param_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"float32 train step launched K5 {n} times and its "
+                             f"backward {nb}, want {2 * L} and {L}: {rec}")
+    train_grad_check(model, batch, smi, phase="train_f32_grad_check",
+                     limit=GRAD_RMS_LIMIT_F32)
+    launches, bwd_launches = k5_launches() - before, k5_bwd_launches() - before_bwd
+    del model, opt, batch
+    free_card()
+    return {"launches": launches, "bwd_launches": bwd_launches, "step_s": secs, "peak": peak,
+            "pick": pick}
 
 
 def phase_train(smi: str) -> dict:
@@ -2882,17 +3066,20 @@ def phase_train(smi: str) -> dict:
     grad = train_grad_check(model, batch, smi)
     del model, opt, batch
     free_card()
+    f32 = train_float32(pipe, smi)
     main_rec = train_main(smi)
     free_card()
 
     launches, bwd_launches = k5_launches(), k5_bwd_launches()
-    counted = sum(per_step) + grad["k5_launches"] + main_rec["k5_launches"]
+    counted = (sum(per_step) + grad["k5_launches"] + f32["launches"]
+               + main_rec["k5_launches"])
     counted_bwd = (sum(per_step_bwd) + grad["k5_backward_launches"]
-                   + main_rec["k5_backward_launches"])
+                   + f32["bwd_launches"] + main_rec["k5_backward_launches"])
     main_want = 6 * L  # 6 steps, one microbatch, remat off
     emit({"phase": "train_launches", "k5_launches": launches,
           "k5_launches_of_train_steps": counted, "k5_per_step": per_step,
           "want_per_step": want, "k5_grad_check": grad["k5_launches"],
+          "k5_float32_step": f32["launches"], "k5_backward_float32_step": f32["bwd_launches"],
           "k5_launch_train": main_rec["k5_launches"],
           "k5_backward_launches": bwd_launches,
           "k5_backward_launches_of_train_steps": counted_bwd,
@@ -2907,6 +3094,7 @@ def phase_train(smi: str) -> dict:
         raise AssertionError(f"K5 launched {launches} / {bwd_launches} times in "
                              f"phase 11, its train steps account for {counted} / "
                              f"{counted_bwd}")
+    k5_f32_at_step_scale(f32.pop("pick"), smi)
 
     replays = []
     t0 = time.perf_counter()

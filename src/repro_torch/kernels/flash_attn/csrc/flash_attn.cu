@@ -17,7 +17,9 @@
 //
 // Bound on this card: operations.  4 * D flops per unmasked (q, k) pair
 // against 4 * D * 2-4 bytes per row of q, k, v and o: in bf16 the 989
-// TFLOP/s of the tensor cores, in float32 the 67 TFLOP/s of the CUDA cores.
+// TFLOP/s of the tensor cores; in float32 three TF32 products per product
+// (the split below), 12 * D flops at the tensor cores' 495 TFLOP/s, a
+// third of the time that 4 * D flops take at the CUDA cores' 67 TFLOP/s.
 // There are two kernels, one per input type.
 //
 // bf16: the tensor cores, FlashAttention-2 style (flash_attention_bf16).
@@ -45,18 +47,36 @@
 //     ldmatrix.x4.trans.  l is summed from the float32 P.  Rounding P adds at
 //     most 2^-8 * (A |V|) to an output, A the exact softmax (the limit
 //     ``attention_limit`` in ref.py states).
-// float32: the CUDA cores in true float32 (flash_attention_f32), so the
-//   reference's 2e-5 holds; TF32 tensor cores would not meet it.  One CTA
-//   of 256 threads per 64-row query tile, 32-key K and V tiles in float32 in
-//   shared memory; thread (tr, tc) = (t / 16, t % 16) owns query rows
-//   4tr..4tr+3, the scores of keys tc and tc + 16, its rows' running max m
-//   and sum l (kept alike in all 16 threads of a row group by shuffles), and
-//   D / 16 of each row's output columns: float4 chunks g * 64 + 4tc..4tc+3
-//   while 64 columns remain for them, then a float2 chunk of the next 32
-//   columns (2tc, 2tc + 1) and a single column of the last 16, as D needs
-//   (D = 32: one float2; 64: one float4; 96: a float4 and a float2; 128: two
-//   float4).  Shared rows are padded by 4 floats, so the float4 reads of a
-//   quarter-warp fall on distinct banks.
+// float32: split TF32 on wgmma, fed by TMA (flash_attention_f32;
+//   split_tf32.cuh).  One TF32 product (10 mantissa bits) misses the
+//   reference's 2e-5 many times over; each operand split as x = hi + lo,
+//   hi = tf32(x), lo = x - hi, and each product run as hi hi + hi lo + lo hi
+//   (three wgmma TF32 products into one float32 accumulator) is within
+//   about 2^-21 of the float32 product, inside ``attention_limit`` with 12x
+//   of margin on unit-variance draws (``ref.attention_split_tf32``
+//   emulates it; one TF32 product, ``ref.attention_tf32``, exceeds the
+//   limit 20x or more).
+//   * A CTA of 384 threads owns 128 query rows: two consumer warpgroups of
+//     64 rows and a producer warpgroup (setmaxnreg: 40 registers against
+//     232).  Its warp 0 loads Q once and then, for each key tile, K (rows)
+//     and V (a K-major copy [bh, d, s8] written by ``kmajor_copy`` before
+//     the launch: TF32 wgmma reads shared operands K-major only) by TMA
+//     into a ring of 2-4 slots (full / empty mbarriers; 3D [bh, s, d] maps,
+//     so rows past S read zeros of their own head); its warps 1-3 split each
+//     tile that lands, hi rounded in place and lo beside it (ready
+//     mbarriers).  Q, K and V take 8 bytes an element as hi and lo, so key
+//     tiles are 64 keys at D <= 64 and 32 above (128 KB of Q at D = 128).
+//   * S = Q K^T with both operands in shared memory, its hi hi terms
+//     summed in chunks of 32 columns of D on the CUDA cores (split_scores:
+//     the tensor cores' float32 accumulation truncates, and an error of a
+//     score is a relative error of its P); the scale is applied to the
+//     float32 scores, the mask element by element, the online softmax in
+//     float32 with expf and the row max and sum over each quad.
+//   * O = alpha O + P V: P, split in registers, is the A operand as the
+//     accumulator holds it (V's copy permutes its keys to match); each
+//     tile's product goes into a fresh accumulator, 32 columns at a time,
+//     and is added to O on the CUDA cores, since the tensor cores' float32
+//     accumulation truncates and over all of S would drift past the limit.
 //
 // Both kernels launch heavy tiles (late queries, most keys) first and skip
 // tiles entirely outside the window, as the TPU kernel skips its blocks.  A
@@ -71,224 +91,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "split_tf32.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
 constexpr float kMasked = -1e30f;
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 32;       // keys per staged tile
-constexpr int kThreads = 256;
-constexpr int kPad = 4;       // floats of padding per shared row
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-// sum / max over the 16 threads of one row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes_f32() {
-  return sizeof(float) *
-         (kBQ * (D + kPad) + 2 * kBK * (D + kPad) + kBQ * (kBK + kPad));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int s_len, int window,
-                        float scale) {
-  static_assert(D % 16 == 0, "16 threads share a row: D / 16 columns each");
-  constexpr int LD = D + kPad;   // row stride of the Q, K and V tiles
-  constexpr int LP = kBK + kPad; // row stride of the P tile
-  constexpr int C = D / 16;      // output columns per thread
-  constexpr int G = C / 4;       // its float4 chunks: columns g * 64 + 4tc
-  constexpr int H2 = C % 4 / 2;  // a float2 chunk: columns B2 + 2tc
-  constexpr int H1 = C % 2;      // a single column: B1 + tc
-  constexpr int B2 = 64 * G, B1 = B2 + 32 * H2;
-  static_assert(B1 + 16 * H1 == D, "the chunks cover the row exactly");
-  constexpr int V4 = D / 4;      // float4s per row
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
-  float* ks = qs + kBQ * LD;                     // [kBK][LD]
-  float* vs = ks + kBK * LD;                     // [kBK][LD]
-  float* ps = vs + kBK * LD;                     // [kBQ][LP]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int64_t head = (int64_t)blockIdx.y * s_len * D;
-  const int t = threadIdx.x;
-  const int tr = t >> 4;
-  const int tc = t & 15;
-
-  for (int e = t; e < kBQ * V4; e += kThreads) {
-    const int r = e / V4, c = (e % V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < s_len) {
-      x = load4(q + head + (int64_t)(q0 + r) * D + c);
-      x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    }
-    store4(qs + r * LD + c, x);
-  }
-
-  // acc[i]: the float4 chunks' columns, then the float2's, then the single
-  float m[4], l[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBQ, s_len) - 1;
-  const int n_tiles = q_last / kBK + 1;  // tiles at or below the frontier
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    // no row of this CTA sees any key of the tile (uniform over the CTA)
-    if (window > 0 && k0 + kBK - 1 <= q0 - window) continue;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int e = t; e < kBK * V4; e += kThreads) {
-      const int r = e / V4, c = (e % V4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < s_len) {
-        const int64_t off = head + (int64_t)(k0 + r) * D + c;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      store4(ks + r * LD + c, kx);
-      store4(vs + r * LD + c, vx);
-    }
-    __syncthreads();
-
-    // scores of rows 4tr+i against keys tc and tc+16
-    float sc[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * tr + i) * LD + d);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tc + 16 * j) * LD + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          sc[i][j] = a;
-        }
-      }
-    }
-
-    // mask, online softmax update, P to shared memory
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * tr + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tc + 16 * j;
-        const bool keep =
-            kpos <= qpos && (window <= 0 || kpos > qpos - window);
-        if (!keep) sc[i][j] = kMasked;
-      }
-      const float m_new = fmaxf(m[i], group_max(fmaxf(sc[i][0], sc[i][1])));
-      const float p0 = expf(sc[i][0] - m_new);
-      const float p1 = expf(sc[i][1] - m_new);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + group_sum(p0 + p1);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-      ps[(4 * tr + i) * LP + tc] = p0;
-      ps[(4 * tr + i) * LP + tc + 16] = p1;
-    }
-    __syncthreads();
-
-    // acc += P V over the tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(4 * tr + i) * LP + kk];
-      const float* vrow = vs + kk * LD;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(vrow + g * 64 + 4 * tc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * g + 0] = fmaf(p[i], vv.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(p[i], vv.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(p[i], vv.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(p[i], vv.w, acc[i][4 * g + 3]);
-        }
-      }
-      if constexpr (H2 > 0) {
-        const float2 vv = *reinterpret_cast<const float2*>(vrow + B2 + 2 * tc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * G + 0] = fmaf(p[i], vv.x, acc[i][4 * G + 0]);
-          acc[i][4 * G + 1] = fmaf(p[i], vv.y, acc[i][4 * G + 1]);
-        }
-      }
-      if constexpr (H1 > 0) {
-        const float vv = vrow[B1 + tc];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][C - 1] = fmaf(p[i], vv, acc[i][C - 1]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    if (row >= s_len) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    // m and l are the scaled scores' (q was scaled on load): natural log
-    if (lse != nullptr && tc == 0) lse[(int64_t)blockIdx.y * s_len + row] = m[i] + logf(den);
-    float* out = o + head + (int64_t)row * D;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      store4(out + g * 64 + 4 * tc,
-             make_float4(acc[i][4 * g + 0] / den, acc[i][4 * g + 1] / den,
-                         acc[i][4 * g + 2] / den, acc[i][4 * g + 3] / den));
-    }
-    if constexpr (H2 > 0) {
-      *reinterpret_cast<float2*>(out + B2 + 2 * tc) =
-          make_float2(acc[i][4 * G + 0] / den, acc[i][4 * G + 1] / den);
-    }
-    if constexpr (H1 > 0) out[B1 + tc] = acc[i][C - 1] / den;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync.m16n8k16, float32 accumulators)
@@ -515,24 +323,210 @@ __global__ void __launch_bounds__(32 * kWarps, 3)
 }
 
 // ---------------------------------------------------------------------------
+// float32: split TF32 on wgmma, fed by TMA (split_tf32.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdGroups = 2;                       // consumer warpgroups
+constexpr int kFwdRows = 64 * kFwdGroups;           // query rows of a CTA
+constexpr int kFwdThreads = 128 * (kFwdGroups + 1);  // and a producer warpgroup
+
+// keys of a staged K (or V) tile: what the registers (168 a thread with
+// two consumer warpgroups) and, at D = 128, shared memory (128 query rows
+// take 128 KB as hi and lo) allow
+template <int D>
+__host__ __device__ constexpr int fwd_keys() { return D <= 64 ? 64 : 32; }
+// columns of O per product (rs_tile): wider ones spill at D = 96 and 128
+constexpr int kFwdCols = 32;
+
+template <int D>
+using FwdRing = Ring<1, kFwdRows, D, fwd_keys<D>(), false>;
+
+// Slot uses, in order: K of key tile kt (rows), then V of it (K-major copy).
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_attention_f32(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_vt,
+                        float* __restrict__ o, float* __restrict__ lse, int s_len,
+                        int window, float scale) {
+  static_assert(D % kBoxF == 0, "whole TMA boxes");
+  using L = FwdRing<D>;
+  constexpr int BK = fwd_keys<D>();
+  constexpr int NS = L::NS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sp = smem_raw;
+  const uint32_t base = smem_base(sp);
+
+  const int head = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;  // late queries first
+  // key tiles at or below the frontier that the window leaves visible
+  const int q_last = min(q0 + kFwdRows, s_len) - 1;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int uses = 2 * (q_last / BK + 1 - kt_begin);
+
+  if (threadIdx.x == 0) L::init(base, 4 * kFwdGroups);
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kFwdGroups) {
+    regs_producer<kFwdGroups>();
+    const int pt = threadIdx.x - 128 * kFwdGroups;
+    if (pt == 0) {  // TMA: Q once, then K and V of each key tile
+      mbar_arrive_tx(base + L::own_full(), L::OWN_T);
+      tma_rows_f32<D, kFwdRows>(base + L::own(0), &tm_q, base + L::own_full(), q0, head);
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        const uint32_t full = base + L::full(st);
+        const int k0 = (kt_begin + u / 2) * BK;
+        mbar_wait(base + L::empty(st), ((u / NS) & 1) ^ 1);
+        mbar_arrive_tx(full, L::TILE);
+        if (u % 2 == 0) {
+          tma_rows_f32<D, BK>(base + L::slot(st), &tm_k, full, k0, head);
+        } else {
+          tma_cols_f32<D, BK>(base + L::slot(st), &tm_vt, full, k0, head);
+        }
+      }
+    } else if (pt >= 32) {  // split each tile that lands
+      const int i = pt - 32;
+      mbar_wait(base + L::own_full(), 0);
+      split_tile(sp + L::own(0), kFwdRows * D, i);
+      fence_proxy_async();
+      mbar_arrive(base + L::own_ready());
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        mbar_wait(base + L::full(st), (u / NS) & 1);
+        split_tile(sp + L::slot(st), BK * D, i);
+        fence_proxy_async();
+        mbar_arrive(base + L::ready(st));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns queries qw0 .. qw0 + 63, its warp 16 of them
+  regs_consumer<kFwdGroups>();
+  // the warpgroup, known to be warp-uniform: its descriptors live in
+  // uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int qwarp = qw0 + 16 * warp;
+  const uint32_t qh = base + L::own(0), ql = qh + L::OWN_T;
+  float acc[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+  float m[2] = {kMasked, kMasked};  // rows g and g + 8, natural log units
+  float l[2] = {0.f, 0.f};          // this thread's columns only
+  mbar_wait(base + L::own_ready(), 0);
+
+  for (int u = 0; u < uses; u += 2) {
+    const int k0 = (kt_begin + u / 2) * BK;
+    const int sk = u % NS, sv = (u + 1) % NS;
+    // a query of the warpgroup sees a key of the tile
+    const bool vis = qw0 < s_len && k0 <= qw0 + 63 &&
+                     !(window > 0 && k0 + BK - 1 <= qw0 - window);
+    float s[BK / 2], alpha[2];
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+
+    // S = Q K^T as split TF32
+    mbar_wait(base + L::ready(sk), (u / NS) & 1);
+    if (vis) {
+      const uint32_t kh = base + L::slot(sk);
+      split_scores<kFwdRows, BK, D / 8>(s, qh, ql, 64 * wg, kh, kh + L::TILE);
+    }
+    if (lane == 0) mbar_arrive(base + L::empty(sk));
+
+    // scaled, masked scores and the online softmax in float32: rows g and
+    // g + 8 of the warp's 16, columns 8j + 2t4 + {0, 1}
+    if (vis) {
+      float mx[2] = {kMasked, kMasked};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qpos = qwarp + g + 8 * (e >> 1);
+          const bool masked = kpos > qpos || (window > 0 && kpos <= qpos - window);
+          s[4 * j + e] = masked ? kMasked : s[4 * j + e] * scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+        }
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[4 * j + e] - mx[e >> 1]);
+          rs[e >> 1] += p;
+          s[4 * j + e] = p;
+        }
+        split_a(ph[j], pl[j], s, j);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    }
+
+    // O = alpha O + P V: P from registers, V's K-major copy from shared
+    // memory
+    mbar_wait(base + L::ready(sv), ((u + 1) / NS) & 1);
+    if (vis) {
+      const uint32_t vh = base + L::slot(sv);
+      rs_tile<D, kFwdCols, BK / 8>(acc, ph, pl, vh, vh + L::TILE, alpha);
+    }
+    if (lane == 0) mbar_arrive(base + L::empty(sv));
+  }
+
+  // o = acc / max(l, 1e-30), rows g and g + 8, columns 8n + 2t4 + {0, 1}
+  const int64_t rows = (int64_t)head * s_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qwarp + g + 8 * r;
+    const float den = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row >= s_len) continue;
+    // m is the natural-log max of the scaled scores
+    if (lse != nullptr && t4 == 0) lse[rows + row] = m[r] + logf(den);
+    float* out = o + (rows + row) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[4 * n + 2 * r] / den, acc[4 * n + 2 * r + 1] / den);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-               int bh, int s, int window, float scale, cudaStream_t stream) {
-  auto kern = flash_attention_f32<D>;
-  constexpr size_t smem = smem_bytes_f32<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+               int bh, int s, int window, float scale, float* vtf, cudaStream_t stream) {
+  using L = FwdRing<D>;
+  constexpr int BK = fwd_keys<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_f32<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((s + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(bh));
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, s, window,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap mq, mk, mvt;
+  e = launch_kmajor(v, vtf, bh, s, D, stream);
+  if (e == cudaSuccess) e = rows_map_f32(&mq, q, bh, s, D, kFwdRows);
+  if (e == cudaSuccess) e = rows_map_f32(&mk, k, bh, s, D, BK);
+  if (e == cudaSuccess) e = cols_map_f32(&mvt, vtf, bh, s, D);
+  if (e == cudaSuccess) {
+    const dim3 grid(static_cast<unsigned>(bh),
+                    static_cast<unsigned>((s + kFwdRows - 1) / kFwdRows));
+    flash_attention_f32<D><<<grid, kFwdThreads, L::bytes, stream>>>(
+        mq, mk, mvt, static_cast<float*>(o), lse, s, window, scale);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }
 
 template <int D, typename Out>
@@ -565,8 +559,8 @@ bool aligned16(const void* p) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int s, int window, float scale, int bf16, int o_f32,
-           cudaStream_t stream) {
-  if (!bf16) return launch_f32<D>(q, k, v, o, lse, bh, s, window, scale, stream);
+           float* kmajor, cudaStream_t stream) {
+  if (!bf16) return launch_f32<D>(q, k, v, o, lse, bh, s, window, scale, kmajor, stream);
   return o_f32 ? launch_bf16<D, float>(q, k, v, o, lse, bh, s, window, scale, stream)
                : launch_bf16<D, __nv_bfloat16>(q, k, v, o, lse, bh, s, window,
                                                scale, stream);
@@ -580,25 +574,40 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // 64, 96 or 128 (the head dims of the repo's configurations: 32 in every
 // smoke configuration, 96 in phi-3-vision-4.2b); lse float32 [bh, s] or
 // null (not written); bh at most 65535; window 0 means none, else keys
-// with kpos <= qpos - window are masked.  Returns the cudaError_t of the
-// launch (0 on success).
+// with kpos <= qpos - window are masked; kmajor, float32 only, scratch of
+// bh * d * round8(s) floats, 16-byte aligned, for V's K-major copy (null
+// with bf16).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int s, int d, int window,
                                       float scale, int bf16, int o_f32,
-                                      void* stream) {
+                                      void* kmajor, void* stream) {
   if (bh < 0 || bh > 65535 || s < 0 || window < 0 ||
       (d != 32 && d != 64 && d != 96 && d != 128) || !q || !k || !v || !o ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) {
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) ||
+      (!bf16 && (!kmajor || !aligned16(kmajor)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* km = static_cast<float*>(kmajor);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
-    case 64: return launch<64>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
-    case 96: return launch<96>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
-    default: return launch<128>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, st);
+    case 32: return launch<32>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, km, st);
+    case 64: return launch<64>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, km, st);
+    case 96: return launch<96>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, km, st);
+    default: return launch<128>(q, k, v, o, l, bh, s, window, scale, bf16, o_f32, km, st);
+  }
+}
+
+// Dynamic shared memory in bytes of the float32 kernel at head dim d; -1
+// for another head dim.
+extern "C" int flash_attention_f32_smem(int d) {
+  switch (d) {
+    case 32: return static_cast<int>(FwdRing<32>::bytes);
+    case 64: return static_cast<int>(FwdRing<64>::bytes);
+    case 96: return static_cast<int>(FwdRing<96>::bytes);
+    case 128: return static_cast<int>(FwdRing<128>::bytes);
+    default: return -1;
   }
 }

@@ -18,7 +18,8 @@
 // head (five products) against a row each of q, k, v, o (float32), dO, dq,
 // dk, dv per position: at qwen2-0.5b's training shape (BH 28, S 4,096,
 // D 64, bf16) 150 GFLOP, 0.152 ms at the tensor cores' 989 TFLOP/s, against
-// 133 MB, 0.040 ms at 3.35 TB/s.
+// 133 MB, 0.040 ms at 3.35 TB/s.  In float32 each product is three TF32
+// products (split_tf32.cuh): 30 * D flops a pair at 495 TFLOP/s.
 //
 // Design: three kernels on one stream, no atomics, so the gradients are the
 // same bit for bit from run to run (a one-rank sharded step must give the
@@ -66,13 +67,32 @@
 //   it; ``BWD_BF16_RMS_LIMIT``).  A warpgroup that sees none of a tile
 //   skips it; a warp whose rows cross the diagonal, the window's edge or S
 //   masks element by element.
-// float32: the CUDA cores in true float32, so ``attention_bwd_limit``'s
-//   2e-5 of the spread holds.  A CTA of 256 threads owns 32 keys (dK/dV) or
-//   32 queries (dQ) and stages 32-row tiles of the other side in float32,
-//   rows padded by 4 floats; thread (tr, tc) = (t / 16, t % 16) computes
-//   the scores of its rows 2tr, 2tr + 1 against columns tc, tc + 16, writes
-//   P and dS to shared memory, then accumulates columns tc + 16 c of its two
-//   rows.
+// float32: split TF32 on wgmma, fed by TMA (split_tf32.cuh): every product
+//   as hi hi + hi lo + lo hi of TF32 halves, within about 2^-21 of the
+//   float32 product, so ``attention_bwd_limit``'s 2e-5 of the spread holds
+//   with 12x of margin on unit-variance draws
+//   (``ref.attention_bwd_split_tf32``; one TF32 product,
+//   ``ref.attention_bwd_tf32``, exceeds it 18x or more).  The CTA shape is
+//   the bf16 kernels' with a ring of single operand tiles: a producer warp
+//   loads them by TMA, three helper warps split each (hi rounded in place,
+//   lo beside it), consumer warpgroups of 64 rows wait for the split.  Own
+//   rows and tiles take 8 bytes an element as hi and lo, so a CTA owns 128
+//   keys (queries) at D <= 64, two consumer warpgroups, and 64 at D = 96 /
+//   128, one; the other side is streamed in 32-row tiles.  dK/dV: per query
+//   tile Q and dO as rows (S^T = K Q^T, dP^T = V dO^T, both operands in
+//   shared memory, the scores' hi hi terms summed in chunks on the CUDA
+//   cores as in the forward; the Q tile carries its rows' lse and delta),
+//   then dO and
+//   Q as K-major copies [bh, d, s8] (``kmajor_copy``, before the launch:
+//   TF32 wgmma reads shared operands K-major only) for dV += P^T dO and
+//   dK += dS^T Q, P^T and dS^T split in registers as the A operands as the
+//   accumulators hold them (the copies permute their positions to match).
+//   dQ: per key tile K and V as rows (S = Q K^T, dP = dO V^T), then K's
+//   K-major copy for dQ += dS K.  Each tile's dV, dK or dQ product goes into
+//   a fresh accumulator and is added on the CUDA cores: the tensor cores'
+//   float32 accumulation truncates, so a dV summed on them over all of S
+//   drifts by up to an ulp per wgmma, a share of the limit that grows with
+//   S.  Exponents, lse and delta stay in float32 on the CUDA cores.
 
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types
@@ -80,6 +100,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "split_tf32.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -170,30 +191,6 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
   for (int b = 0; b < D / kBox; ++b) {
     tma_load_3d(dst + b * ROWS * kBoxRow, map, bar, b * kBox, row, head);
   }
-}
-
-// k-step kk (columns 16 kk .. 16 kk + 15) of rows [r0, r0 + 64) of a
-// [ROWS, D] tile read K-major: the A of a product over D, or its B
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-  return desc_sw64(tile + (kk / 2) * ROWS * kBoxRow + r0 * kBoxRow + (kk % 2) * 32,
-                   16, 8 * kBoxRow);
-}
-
-// k-step kk (rows 16 kk .. 16 kk + 15) of a [ROWS, D] tile read MN-major:
-// the B (16 x D) of a product over the tile's rows
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return desc_sw64(tile + kk * 16 * kBoxRow, ROWS * kBoxRow, 8 * kBoxRow);
-}
-
-// the 1,024-byte-aligned start of dynamic shared memory (``bytes`` leaves
-// room for the shift)
-__device__ __forceinline__ uint32_t smem_base(uint8_t*& p) {
-  const uint32_t raw = smem_addr(p);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  p += base - raw;
-  return base;
 }
 
 // Round float accumulators to bf16 A fragments: k-step kk of a 64 x N
@@ -559,259 +556,365 @@ __global__ void __launch_bounds__(kThreadsTc, 1)
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: split TF32 on wgmma, fed by TMA (split_tf32.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kF = 32;         // rows per CTA and per staged tile
-constexpr int kThreads = 256;  // 16 row pairs x 16 columns
-constexpr int kPad = 4;        // floats of padding per shared row
+// consumer warpgroups: two (128 own rows) where their own K, V (or Q, dO)
+// as hi and lo fit beside the ring, one (64 rows) at D = 96 / 128
+template <int D>
+__host__ __device__ constexpr int bwd_groups() { return D <= 64 ? 2 : 1; }
+
+constexpr int kOther = 32;  // rows of the other side per staged tile
+
+// columns of dK and dV per product (rs_tile): what the registers allow,
+// 168 a thread with two consumer warpgroups, 255 with one
+template <int D>
+__host__ __device__ constexpr int dkdv_cols() { return D == 128 ? 64 : D; }
 
 template <int D>
-constexpr size_t smem_f32() {
-  // four [kF][D + kPad] tiles, two [kF][kF + kPad] (P, dS), lse and delta
-  return sizeof(float) * (4 * kF * (D + kPad) + 2 * kF * (kF + kPad) + 2 * kF);
-}
-
-// rows [row0, row0 + kF) of x (a head's [s_len, D]) into ``dst``, zeros
-// past S
+using DkdvRing = Ring<2, 64 * bwd_groups<D>(), D, kOther, true>;
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* x,
-                                              int row0, int s_len) {
-  constexpr int LD = D + kPad, V4 = D / 4;
-  for (int e = threadIdx.x; e < kF * V4; e += kThreads) {
-    const int r = e / V4, c = (e % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < s_len) {
-      val = __ldg(reinterpret_cast<const float4*>(x + (int64_t)(row0 + r) * D + c));
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
-}
+using DqRing = Ring<2, 64 * bwd_groups<D>(), D, kOther, false>;
 
-// a[i] . b[j] and c[i] . e[j] over D for the thread's rows 2tr + i of
-// (a, c) and rows tc + 16j of (b, e)
+// dK/dV.  Slot uses per query tile, in order: Q (rows, with the tile's lse
+// and delta), dO (rows), dO and Q (K-major copies).
 template <int D>
-__device__ __forceinline__ void dots_f32(const float* a, const float* b,
-                                         const float* c, const float* e,
-                                         int tr, int tc, float (&ab)[2][2],
-                                         float (&ce)[2][2]) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) ab[i][0] = ab[i][1] = ce[i][0] = ce[i][1] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[2], cv[2], bv[2], ev[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      av[i] = *reinterpret_cast<const float4*>(a + (2 * tr + i) * LD + d);
-      cv[i] = *reinterpret_cast<const float4*>(c + (2 * tr + i) * LD + d);
-      bv[i] = *reinterpret_cast<const float4*>(b + (tc + 16 * i) * LD + d);
-      ev[i] = *reinterpret_cast<const float4*>(e + (tc + 16 * i) * LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float x = ab[i][j], y = ce[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        y = fmaf(cv[i].x, ev[j].x, y);
-        y = fmaf(cv[i].y, ev[j].y, y);
-        y = fmaf(cv[i].z, ev[j].z, y);
-        y = fmaf(cv[i].w, ev[j].w, y);
-        ab[i][j] = x;
-        ce[i][j] = y;
-      }
-    }
-  }
-}
+__global__ void __launch_bounds__(128 * (bwd_groups<D>() + 1), 1)
+    flash_bwd_dkdv_f32(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_qt,
+                       const __grid_constant__ CUtensorMap tm_dot,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv, int s_len,
+                       int window, float scale) {
+  static_assert(D % kBoxF == 0, "whole TMA boxes");
+  constexpr int G = bwd_groups<D>(), OWN = 64 * G, BQ = kOther;
+  using L = DkdvRing<D>;
+  constexpr int NS = L::NS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sp = smem_raw;
+  const uint32_t base = smem_base(sp);
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, float* __restrict__ dk,
-                       float* __restrict__ dv, int s_len, int window,
-                       float scale) {
-  static_assert(D % 16 == 0, "16 threads share a row: D / 16 columns each");
-  constexpr int LD = D + kPad, LP = kF + kPad, C = D / 16;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kF][LD], the CTA's keys
-  float* vs = ks + kF * LD;
-  float* qs = vs + kF * LD;                       // [kF][LD], a query tile
-  float* dos = qs + kF * LD;
-  float* ps = dos + kF * LD;                      // [kF keys][LP] P^T
-  float* dss = ps + kF * LP;                      // [kF keys][LP] dS^T
-  float* lses = dss + kF * LP;
-  float* dels = lses + kF;
-
-  const int k0 = blockIdx.x * kF;
-  const int64_t head = (int64_t)blockIdx.y * s_len * D;
-  const int64_t rows = (int64_t)blockIdx.y * s_len;
-  const int t = threadIdx.x, tr = t >> 4, tc = t & 15;
-
-  load_rows_f32<D>(ks, k + head, k0, s_len);
-  load_rows_f32<D>(vs, v + head, k0, s_len);
-  float dka[2][C], dva[2][C];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) dka[i][c] = dva[i][c] = 0.f;
-  }
-
-  const int k_last = min(k0 + kF, s_len) - 1;
+  const int head = blockIdx.x;
+  const int k0 = blockIdx.y * OWN;  // early keys see the most queries: first
+  // the query tiles that see a key of this CTA
+  const int k_last = min(k0 + OWN, s_len) - 1;
   const int q_end = window > 0 ? min(s_len, k_last + window) : s_len;
-  for (int q0 = k0; q0 < q_end; q0 += kF) {
-    __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-    load_rows_f32<D>(qs, q + head, q0, s_len);
-    load_rows_f32<D>(dos, dout + head, q0, s_len);
-    if (t < kF) {
-      const bool in = q0 + t < s_len;
-      lses[t] = in ? lse[rows + q0 + t] : 0.f;
-      dels[t] = in ? delta[rows + q0 + t] : 0.f;
-    }
-    __syncthreads();
+  const int qt_begin = k0 / BQ;
+  const int uses = 4 * ((q_end + BQ - 1) / BQ - qt_begin);
+  const int64_t rows = (int64_t)head * s_len;
 
-    // S^T and dP^T of keys 2tr + i against queries tc + 16j
-    float sc[2][2], dp[2][2];
-    dots_f32<D>(ks, qs, vs, dos, tr, tc, sc, dp);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qi = tc + 16 * j;
-        const float p = hidden(k0 + 2 * tr + i, q0 + qi, window, s_len)
-                            ? 0.f
-                            : expf(sc[i][j] * scale - lses[qi]);
-        ps[(2 * tr + i) * LP + qi] = p;
-        dss[(2 * tr + i) * LP + qi] = p * (dp[i][j] - dels[qi]);
+  if (threadIdx.x == 0) L::init(base, 4 * G);
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * G) {
+    regs_producer<G>();
+    const int pt = threadIdx.x - 128 * G;
+    if (pt == 0) {  // TMA: K and V once, then each query tile's four operands
+      mbar_arrive_tx(base + L::own_full(), 2 * L::OWN_T);
+      tma_rows_f32<D, OWN>(base + L::own(0), &tm_k, base + L::own_full(), k0, head);
+      tma_rows_f32<D, OWN>(base + L::own(1), &tm_v, base + L::own_full(), k0, head);
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        const uint32_t full = base + L::full(st), dst = base + L::slot(st);
+        const int q0 = (qt_begin + u / 4) * BQ;
+        mbar_wait(base + L::empty(st), ((u / NS) & 1) ^ 1);
+        mbar_arrive_tx(full, L::TILE);
+        switch (u % 4) {
+          case 0: tma_rows_f32<D, BQ>(dst, &tm_q, full, q0, head); break;
+          case 1: tma_rows_f32<D, BQ>(dst, &tm_do, full, q0, head); break;
+          case 2: tma_cols_f32<D, BQ>(dst, &tm_dot, full, q0, head); break;
+          default: tma_cols_f32<D, BQ>(dst, &tm_qt, full, q0, head);
+        }
+      }
+    } else if (pt >= 32) {  // split each tile that lands
+      const int i = pt - 32;
+      mbar_wait(base + L::own_full(), 0);
+      split_tile(sp + L::own(0), OWN * D, i);
+      split_tile(sp + L::own(1), OWN * D, i);
+      fence_proxy_async();
+      mbar_arrive(base + L::own_ready());
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        mbar_wait(base + L::full(st), (u / NS) & 1);
+        split_tile(sp + L::slot(st), BQ * D, i);
+        if (u % 4 == 0) {  // the Q tile carries its rows' lse and delta
+          float* vals = reinterpret_cast<float*>(sp + L::vals(st));
+          const int q0 = (qt_begin + u / 4) * BQ;
+          for (int r = i; r < BQ; r += kSplitters) {
+            const bool in = q0 + r < s_len;
+            vals[r] = in ? lse[rows + q0 + r] : 0.f;
+            vals[BQ + r] = in ? delta[rows + q0 + r] : 0.f;
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(base + L::ready(st));
       }
     }
-    __syncthreads();
+    return;
+  }
 
-    // dV += P^T dO and dK += dS^T Q over the tile's queries, columns
-    // tc + 16c of the thread's two keys
-#pragma unroll 4
-    for (int qq = 0; qq < kF; ++qq) {
-      float p[2], ds[2];
+  // consumers: warpgroup wg owns keys kw0 .. kw0 + 63, its warp 16 of them
+  regs_consumer<G>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 64 * wg;
+  const int kwarp = kw0 + 16 * warp;
+  const uint32_t kh = base + L::own(0), kl = kh + L::OWN_T;
+  const uint32_t vh = base + L::own(1), vl = vh + L::OWN_T;
+  float dva[D / 2], dka[D / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        p[i] = ps[(2 * tr + i) * LP + qq];
-        ds[i] = dss[(2 * tr + i) * LP + qq];
+  for (int n = 0; n < D / 2; ++n) dva[n] = dka[n] = 0.f;
+  mbar_wait(base + L::own_ready(), 0);
+
+  const float one[2] = {1.f, 1.f};
+  for (int u = 0; u < uses; u += 4) {
+    const int q0 = (qt_begin + u / 4) * BQ;
+    int st[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) st[x] = (u + x) % NS;
+    // a query of the tile sees a key of the warpgroup
+    const bool vis = kw0 < s_len && kw0 <= q0 + BQ - 1 &&
+                     !(window > 0 && kw0 + 63 <= q0 - window);
+    float s[BQ / 2], dp[BQ / 2];
+    uint32_t fh[BQ / 8][4], fl[BQ / 8][4];
+
+    // S^T = K Q^T and dP^T = V dO^T as split TF32
+    mbar_wait(base + L::ready(st[0]), (u / NS) & 1);
+    mbar_wait(base + L::ready(st[1]), ((u + 1) / NS) & 1);
+    if (vis) {
+      const uint32_t qs = base + L::slot(st[0]), dos = base + L::slot(st[1]);
+      split_scores<OWN, BQ, D / 8>(s, kh, kl, 64 * wg, qs, qs + L::TILE);
+      wgmma_fence();
+      split_ss<OWN, BQ, D / 8>(dp, vh, vl, 64 * wg, dos, dos + L::TILE);
+      wgmma_commit();
+
+      // P^T = exp(s scale - lse), masked to 0, while dP^T runs: rows (keys)
+      // g and g + 8 of the warp's 16, columns (queries) 8j + 2t4 + {0, 1}
+      const float* lv = reinterpret_cast<const float*>(sp + L::vals(st[0]));
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * t4 + (e & 1);
+          s[4 * j + e] = hidden(kwarp + g + 8 * (e >> 1), q0 + qi, window, s_len)
+                             ? 0.f
+                             : expf(fmaf(s[4 * j + e], scale, -lv[qi]));
+        }
       }
+      // dS^T = P^T (dP^T - delta)
+      wgmma_wait<0>();
+      pin(dp);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float o = dos[qq * LD + tc + 16 * c];
-        const float x = qs[qq * LD + tc + 16 * c];
+      for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          dva[i][c] = fmaf(p[i], o, dva[i][c]);
-          dka[i][c] = fmaf(ds[i], x, dka[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - lv[BQ + 8 * j + 2 * t4 + (e & 1)]);
         }
       }
     }
+    if (lane == 0) {
+      mbar_arrive(base + L::empty(st[0]));
+      mbar_arrive(base + L::empty(st[1]));
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries: P^T and dS^T
+    // split as A operands, B from the K-major copies
+    mbar_wait(base + L::ready(st[2]), ((u + 2) / NS) & 1);
+    mbar_wait(base + L::ready(st[3]), ((u + 3) / NS) & 1);
+    if (vis) {
+      const uint32_t dot = base + L::slot(st[2]), qt = base + L::slot(st[3]);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) split_a(fh[j], fl[j], s, j);
+      rs_tile<D, dkdv_cols<D>(), BQ / 8>(dva, fh, fl, dot, dot + L::TILE, one);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) split_a(fh[j], fl[j], dp, j);
+      rs_tile<D, dkdv_cols<D>(), BQ / 8>(dka, fh, fl, qt, qt + L::TILE, one);
+    }
+    if (lane == 0) {
+      mbar_arrive(base + L::empty(st[2]));
+      mbar_arrive(base + L::empty(st[3]));
+    }
   }
 
+  // rows (keys) g and g + 8 of the warp's 16, columns 8n + 2t4 + {0, 1}
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + 2 * tr + i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = kwarp + g + 8 * r;
     if (key >= s_len) continue;
+    const int64_t off = (rows + key) * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dv[head + (int64_t)key * D + tc + 16 * c] = dva[i][c];
-      dk[head + (int64_t)key * D + tc + 16 * c] = dka[i][c] * scale;
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(dka[4 * n + 2 * r] * scale, dka[4 * n + 2 * r + 1] * scale);
     }
   }
 }
 
+// dQ.  Slot uses per key tile, in order: K (rows), V (rows), K (K-major
+// copy).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int s_len, int window, float scale) {
-  static_assert(D % 16 == 0, "16 threads share a row: D / 16 columns each");
-  constexpr int LD = D + kPad, LP = kF + kPad, C = D / 16;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kF][LD], the CTA's queries
-  float* dos = qs + kF * LD;
-  float* ks = dos + kF * LD;                      // [kF][LD], a key tile
-  float* vs = ks + kF * LD;
-  float* dss = vs + kF * LD;                      // [kF queries][LP] dS
-  float* lses = dss + 2 * kF * LP;                // (P's space unused here)
-  float* dels = lses + kF;
+__global__ void __launch_bounds__(128 * (bwd_groups<D>() + 1), 1)
+    flash_bwd_dq_f32(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_kt,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, int s_len, int window, float scale) {
+  static_assert(D % kBoxF == 0, "whole TMA boxes");
+  constexpr int G = bwd_groups<D>(), OWN = 64 * G, BK = kOther;
+  using L = DqRing<D>;
+  constexpr int NS = L::NS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sp = smem_raw;
+  const uint32_t base = smem_base(sp);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF;  // late queries first
-  const int64_t head = (int64_t)blockIdx.y * s_len * D;
-  const int64_t rows = (int64_t)blockIdx.y * s_len;
-  const int t = threadIdx.x, tr = t >> 4, tc = t & 15;
+  const int head = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * OWN;  // late queries first
+  // key tiles at or below the frontier that the window leaves visible
+  const int q_last = min(q0 + OWN, s_len) - 1;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int uses = 3 * (q_last / BK + 1 - kt_begin);
+  const int64_t rows = (int64_t)head * s_len;
 
-  load_rows_f32<D>(qs, q + head, q0, s_len);
-  load_rows_f32<D>(dos, dout + head, q0, s_len);
-  if (t < kF) {
-    const bool in = q0 + t < s_len;
-    lses[t] = in ? lse[rows + q0 + t] : 0.f;
-    dels[t] = in ? delta[rows + q0 + t] : 0.f;
-  }
-  float dqa[2][C];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) dqa[i][c] = 0.f;
-  }
+  if (threadIdx.x == 0) L::init(base, 4 * G);
+  __syncthreads();
 
-  const int q_last = min(q0 + kF, s_len) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kF * kF : 0;
-  for (int k0 = k_begin; k0 <= q_last; k0 += kF) {
-    __syncthreads();  // Q and dO stored; the previous tile's dS consumed
-    load_rows_f32<D>(ks, k + head, k0, s_len);
-    load_rows_f32<D>(vs, v + head, k0, s_len);
-    __syncthreads();
-
-    // S and dP of queries 2tr + i against keys tc + 16j
-    float sc[2][2], dp[2][2];
-    dots_f32<D>(qs, ks, dos, vs, tr, tc, sc, dp);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qi = 2 * tr + i;
-        const float p = hidden(k0 + tc + 16 * j, q0 + qi, window, s_len)
-                            ? 0.f
-                            : expf(sc[i][j] * scale - lses[qi]);
-        dss[qi * LP + tc + 16 * j] = p * (dp[i][j] - dels[qi]);
+  if (threadIdx.x >= 128 * G) {
+    regs_producer<G>();
+    const int pt = threadIdx.x - 128 * G;
+    if (pt == 0) {  // TMA: Q and dO once, then each key tile's three operands
+      mbar_arrive_tx(base + L::own_full(), 2 * L::OWN_T);
+      tma_rows_f32<D, OWN>(base + L::own(0), &tm_q, base + L::own_full(), q0, head);
+      tma_rows_f32<D, OWN>(base + L::own(1), &tm_do, base + L::own_full(), q0, head);
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        const uint32_t full = base + L::full(st), dst = base + L::slot(st);
+        const int k0 = (kt_begin + u / 3) * BK;
+        mbar_wait(base + L::empty(st), ((u / NS) & 1) ^ 1);
+        mbar_arrive_tx(full, L::TILE);
+        switch (u % 3) {
+          case 0: tma_rows_f32<D, BK>(dst, &tm_k, full, k0, head); break;
+          case 1: tma_rows_f32<D, BK>(dst, &tm_v, full, k0, head); break;
+          default: tma_cols_f32<D, BK>(dst, &tm_kt, full, k0, head);
+        }
+      }
+    } else if (pt >= 32) {  // split each tile that lands
+      const int i = pt - 32;
+      mbar_wait(base + L::own_full(), 0);
+      split_tile(sp + L::own(0), OWN * D, i);
+      split_tile(sp + L::own(1), OWN * D, i);
+      fence_proxy_async();
+      mbar_arrive(base + L::own_ready());
+      for (int u = 0; u < uses; ++u) {
+        const int st = u % NS;
+        mbar_wait(base + L::full(st), (u / NS) & 1);
+        split_tile(sp + L::slot(st), BK * D, i);
+        fence_proxy_async();
+        mbar_arrive(base + L::ready(st));
       }
     }
-    __syncthreads();
+    return;
+  }
 
-    // dQ += dS K over the tile's keys, columns tc + 16c of the two rows
-#pragma unroll 4
-    for (int kk = 0; kk < kF; ++kk) {
-      float ds[2];
+  // consumers: warpgroup wg owns queries qw0 .. qw0 + 63, its warp 16 of them
+  regs_consumer<G>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int qwarp = qw0 + 16 * warp;
+  const uint32_t qh = base + L::own(0), ql = qh + L::OWN_T;
+  const uint32_t oh = base + L::own(1), ol = oh + L::OWN_T;
+  // rows g and g + 8: lse and delta (0 past S: not stored)
+  float lse_r[2], del_r[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) ds[i] = dss[(2 * tr + i) * LP + kk];
+  for (int r = 0; r < 2; ++r) {
+    const int row = qwarp + g + 8 * r;
+    lse_r[r] = row < s_len ? lse[rows + row] : 0.f;
+    del_r[r] = row < s_len ? delta[rows + row] : 0.f;
+  }
+  float dqa[D / 2];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float x = ks[kk * LD + tc + 16 * c];
+  for (int n = 0; n < D / 2; ++n) dqa[n] = 0.f;
+  mbar_wait(base + L::own_ready(), 0);
+
+  const float one[2] = {1.f, 1.f};
+  for (int u = 0; u < uses; u += 3) {
+    const int k0 = (kt_begin + u / 3) * BK;
+    const int s0 = u % NS, s1 = (u + 1) % NS, s2 = (u + 2) % NS;
+    // a query of the warpgroup sees a key of the tile
+    const bool vis = qw0 < s_len && k0 <= qw0 + 63 &&
+                     !(window > 0 && k0 + BK - 1 <= qw0 - window);
+    float s[BK / 2], dp[BK / 2];
+    uint32_t dh[BK / 8][4], dl[BK / 8][4];
+
+    // S = Q K^T and dP = dO V^T as split TF32
+    mbar_wait(base + L::ready(s0), (u / NS) & 1);
+    mbar_wait(base + L::ready(s1), ((u + 1) / NS) & 1);
+    if (vis) {
+      const uint32_t ks = base + L::slot(s0), vs = base + L::slot(s1);
+      split_scores<OWN, BK, D / 8>(s, qh, ql, 64 * wg, ks, ks + L::TILE);
+      wgmma_fence();
+      split_ss<OWN, BK, D / 8>(dp, oh, ol, 64 * wg, vs, vs + L::TILE);
+      wgmma_commit();
+
+      // P in place of S while dP runs: rows (queries) g and g + 8, columns
+      // (keys) 8j + 2t4 + {0, 1}; keys past S lie past every real query, so
+      // the causal test masks them
 #pragma unroll
-        for (int i = 0; i < 2; ++i) dqa[i][c] = fmaf(ds[i], x, dqa[i][c]);
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          s[4 * j + e] = hidden(k0 + 8 * j + 2 * t4 + (e & 1), qwarp + g + 8 * r, window,
+                                s_len)
+                             ? 0.f
+                             : expf(fmaf(s[4 * j + e], scale, -lse_r[r]));
+        }
+      }
+      // dS = P (dP - delta), split as the A operand of dQ += dS K
+      wgmma_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - del_r[e >> 1]);
+        }
+        split_a(dh[j], dl[j], dp, j);
       }
     }
+    if (lane == 0) {
+      mbar_arrive(base + L::empty(s0));
+      mbar_arrive(base + L::empty(s1));
+    }
+
+    mbar_wait(base + L::ready(s2), ((u + 2) / NS) & 1);
+    if (vis) {
+      const uint32_t kt = base + L::slot(s2);
+      rs_tile<D, D, BK / 8>(dqa, dh, dl, kt, kt + L::TILE, one);
+    }
+    if (lane == 0) mbar_arrive(base + L::empty(s2));
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + 2 * tr + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = qwarp + g + 8 * r;
     if (row >= s_len) continue;
+    float* out = dq + (rows + row) * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dq[head + (int64_t)row * D + tc + 16 * c] = dqa[i][c] * scale;
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(dqa[4 * n + 2 * r] * scale, dqa[4 * n + 2 * r + 1] * scale);
     }
   }
 }
@@ -839,71 +942,45 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        void* dq, void* dk, void* dv, float* delta, int bh,
-                       int s, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_f32<D>();
-  cudaError_t e = allow_smem(flash_bwd_dkdv_f32<D>, smem);
-  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_f32<D>, smem);
+                       int s, int window, float scale, float* qt, cudaStream_t stream) {
+  constexpr int OWN = 64 * bwd_groups<D>(), B = kOther;
+  constexpr size_t smem_kv = DkdvRing<D>::bytes, smem_q = DqRing<D>::bytes;
+  const size_t copy = static_cast<size_t>(bh) * D * round8(s);  // floats a copy
+  cudaError_t e = allow_smem(flash_bwd_dkdv_f32<D>, smem_kv);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_f32<D>, smem_q);
   if (e == cudaSuccess) e = launch_delta<float, D>(o, dout, delta, (int64_t)bh * s, stream);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((s + kF - 1) / kF), static_cast<unsigned>(bh));
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  flash_bwd_dkdv_f32<D><<<grid, kThreads, smem, stream>>>(
-      qf, kf, vf, df, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      s, window, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_bwd_dq_f32<D><<<grid, kThreads, smem, stream>>>(
-      qf, kf, vf, df, lse, delta, static_cast<float*>(dq), s, window, scale);
-  return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda); null if the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                  cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// x [bh, s, d] bf16 as a 3D tensor map whose box is 32 columns by ``rows``
-// rows of one head, 64-byte swizzle; rows past s read as zeros, so a tile
-// past S never reads the next head's rows
-cudaError_t tensor_map(CUtensorMap* map, const void* x, int bh, int s, int d,
-                       int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(s) * d * 2};
-  const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
-                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  // the K-major copies of Q, dO and K
+  float* dot = qt + copy;
+  float* kt = dot + copy;
+  e = launch_kmajor(q, qt, bh, s, D, stream);
+  if (e == cudaSuccess) e = launch_kmajor(dout, dot, bh, s, D, stream);
+  if (e == cudaSuccess) e = launch_kmajor(k, kt, bh, s, D, stream);
+  // each tensor with boxes of a CTA's own rows and of the staged tiles'
+  const void* x[4] = {q, k, v, dout};
+  CUtensorMap own[4], tile[4], cols[3];
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+    e = rows_map_f32(&own[i], x[i], bh, s, D, OWN);
+    if (e == cudaSuccess) e = rows_map_f32(&tile[i], x[i], bh, s, D, B);
+  }
+  if (e == cudaSuccess) e = cols_map_f32(&cols[0], qt, bh, s, D);
+  if (e == cudaSuccess) e = cols_map_f32(&cols[1], dot, bh, s, D);
+  if (e == cudaSuccess) e = cols_map_f32(&cols[2], kt, bh, s, D);
+  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((s + OWN - 1) / OWN));
+  constexpr int threads = 128 * (bwd_groups<D>() + 1);
+  if (e == cudaSuccess) {
+    flash_bwd_dkdv_f32<D><<<grid, threads, smem_kv, stream>>>(
+        tile[0], own[1], own[2], tile[3], cols[0], cols[1], lse, delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), s, window, scale);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) {
+    flash_bwd_dq_f32<D><<<grid, threads, smem_q, stream>>>(
+        own[0], own[3], tile[1], tile[2], cols[2], lse, delta, static_cast<float*>(dq),
+        s, window, scale);
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 template <int D>
@@ -919,8 +996,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const void* x[4] = {q, k, v, dout};
   cudaError_t e = cudaSuccess;
   for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
-    e = tensor_map(&own[i], x[i], bh, s, D, kRows);
-    if (e == cudaSuccess) e = tensor_map(&tile[i], x[i], bh, s, D, B);
+    e = tensor_map(&own[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x[i], bh, s, D, kRows);
+    if (e == cudaSuccess) {
+      e = tensor_map(&tile[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x[i], bh, s, D, B);
+    }
   }
   if (e == cudaSuccess) e = allow_smem(flash_bwd_dkdv_bf16<D>, smem_kv);
   if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_bf16<D>, smem_q);
@@ -942,12 +1021,12 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* delta, int bh, int s, int window, float scale, int bf16,
-           cudaStream_t st) {
+           float* kmajor, cudaStream_t st) {
   return static_cast<int>(
       bf16 ? launch_bf16<D>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, s,
                             window, scale, st)
            : launch_f32<D>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, s,
-                           window, scale, st));
+                           window, scale, kmajor, st));
 }
 
 bool aligned16(const void* p) {
@@ -968,36 +1047,52 @@ extern "C" int flash_attention_bwd_bf16_smem(int d, int dq_pass) {
   }
 }
 
+// Dynamic shared memory in bytes of the float32 dK/dV (dq_pass 0) or dQ
+// (dq_pass 1) kernel at head dim d; -1 for another head dim.
+extern "C" int flash_attention_bwd_f32_smem(int d, int dq_pass) {
+  switch (d) {
+    case 32: return static_cast<int>(dq_pass ? DqRing<32>::bytes : DkdvRing<32>::bytes);
+    case 64: return static_cast<int>(dq_pass ? DqRing<64>::bytes : DkdvRing<64>::bytes);
+    case 96: return static_cast<int>(dq_pass ? DqRing<96>::bytes : DkdvRing<96>::bytes);
+    case 128: return static_cast<int>(dq_pass ? DqRing<128>::bytes : DkdvRing<128>::bytes);
+    default: return -1;
+  }
+}
+
 // Launches one backward pass on ``stream``: the delta pass, then dK/dV,
 // then dQ.  Device pointers q, k, v, do (the output's gradient) and dq,
 // dk, dv [bh, s, d], contiguous, 16-byte aligned, float32 (bf16 = 0) or
 // bf16 (bf16 = 1); o [bh, s, d] float32 and lse [bh, s] float32 (natural
 // log) as the forward wrote them; delta_scratch [bh, s] float32, overwritten; d 32, 64, 96 or 128;
 // bh at most 65535; window 0 means none, else keys with kpos <= qpos -
-// window are masked; scale is the forward's (1/sqrt(d)).  Returns the
-// cudaError_t of the first launch that failed (0 on success).
+// window are masked; scale is the forward's (1/sqrt(d)); kmajor, float32
+// only, scratch of 3 * bh * d * round8(s) floats, 16-byte aligned, for the
+// K-major copies of Q, dO and K (null with bf16).  Returns the cudaError_t
+// of the first launch that failed (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const void* lse,
                                           void* dq, void* dk, void* dv,
                                           void* delta_scratch, int bh, int s,
                                           int d, int window, float scale,
-                                          int bf16, void* stream) {
+                                          int bf16, void* kmajor, void* stream) {
   if (bh < 0 || bh > 65535 || s < 0 || window < 0 ||
       (d != 32 && d != 64 && d != 96 && d != 128) || !q || !k || !v || !o ||
       !dout || !lse || !dq || !dk || !dv || !delta_scratch || !aligned16(q) ||
       !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(dout) ||
-      !aligned16(dq) || !aligned16(dk) || !aligned16(dv)) {
+      !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
+      (!bf16 && (!kmajor || !aligned16(kmajor)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta_scratch);
+  float* km = static_cast<float*>(kmajor);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, st);
-    case 64: return launch<64>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, st);
-    case 96: return launch<96>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, st);
-    default: return launch<128>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, st);
+    case 32: return launch<32>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, km, st);
+    case 64: return launch<64>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, km, st);
+    case 96: return launch<96>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, km, st);
+    default: return launch<128>(q, k, v, o, dout, l, dq, dk, dv, dl, bh, s, window, scale, bf16, km, st);
   }
 }

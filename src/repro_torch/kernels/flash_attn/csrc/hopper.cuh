@@ -1,21 +1,27 @@
-// Hopper (sm_90a) device helpers of K5's backward (flash_attn_bwd.cu):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors, wgmma
-// products (float32 accumulators, bf16 operands) and register hand-over
-// between warpgroups.  Only sm_90a has wgmma and setmaxnreg.  Like
-// tensor_core.cuh, everything is in an anonymous namespace.
+// Hopper (sm_90a) device helpers of K5's wgmma kernels (the bf16 backward
+// in flash_attn_bwd.cu, both float32 kernels): mbarriers, TMA tile loads,
+// wgmma shared-memory descriptors, wgmma products (float32 accumulators,
+// bf16 or TF32 operands), register hand-over between warpgroups, and on the
+// host the tensor maps TMA reads.  Only sm_90a has wgmma and setmaxnreg.
+// Like tensor_core.cuh, everything is in an anonymous namespace.
 //
-// Operand layout: a [rows, D] bf16 tile is stored as D / 32 boxes of
-// [rows, 32] (64-byte rows), each as TMA writes it with
-// CU_TENSOR_MAP_SWIZZLE_64B (the 16-byte chunk c of row r lands at chunk
-// c ^ ((r / 2) % 4)); every box starts on a 1,024-byte boundary.  A
-// descriptor of such a tile read K-major (the product's depth runs along
-// D) steps 32 bytes within a row per 16 columns and 512 bytes per 8 rows;
-// read MN-major (the depth runs along the rows, the columns are N) it steps
-// 512 bytes per 8 rows and one box per 32 columns.
+// Operand layout: a tile is stored as boxes of 64-byte rows (32 bf16 or 16
+// float32 columns), each box as TMA writes it with CU_TENSOR_MAP_SWIZZLE_64B
+// (the 16-byte chunk c of row r lands at chunk c ^ ((r / 2) % 4)); every
+// box starts on a 1,024-byte boundary.  A wgmma k-step is 32 bytes deep in
+// both types (16 bf16, 8 TF32), so one descriptor serves both: read K-major
+// (the product's depth runs along the row) it steps 32 bytes within a row
+// per k-step and 512 bytes per 8 rows; read MN-major (bf16 only: the depth
+// runs along the rows, the columns are N) it steps 512 bytes per 8 rows and
+// one box per 32 columns.
 
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types
+#include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -134,6 +140,47 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 2ull << 62;
+}
+
+constexpr int kSwRow = 64;  // bytes of a 64-byte-swizzled box row
+
+// k-step kk (bytes 32 kk .. 32 kk + 31 of each row) of rows [r0, r0 + 64)
+// of a [ROWS, *] tile of 64-byte boxes read K-major: the A of a product
+// over the row, or its B
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc_sw64(tile + (kk / 2) * ROWS * kSwRow + r0 * kSwRow + (kk % 2) * 32,
+                   16, 8 * kSwRow);
+}
+
+// k-step kk (rows 16 kk .. 16 kk + 15) of a [ROWS, D] bf16 tile read
+// MN-major: the B (16 x D) of a product over the tile's rows
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc_sw64(tile + kk * 16 * kSwRow, ROWS * kSwRow, 8 * kSwRow);
+}
+
+// the 1,024-byte-aligned start of dynamic shared memory (a kernel's
+// shared-memory size leaves room for the shift)
+__device__ __forceinline__ uint32_t smem_base(uint8_t*& p) {
+  const uint32_t raw = smem_addr(p);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  p += base - raw;
+  return base;
+}
+
+// orders this thread's shared-memory writes before the wgmma (async
+// proxy) reads that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to TF32 (to nearest, ties away from zero): float32 bits whose
+// low 13 mantissa bits are 0, so x - tf32_hi(x) is exact in float32
+__device__ __forceinline__ float tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
 // ---------------------------------------------------------------------------
@@ -276,6 +323,176 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.mma_async m64nNk8, TF32 in (the cores read a float32 operand's top
+// 19 bits), float32 accumulators in the layout above; a register A operand
+// in mma.sync's m16n8k8 TF32 A layout (element i of a thread: row 16 warp +
+// lane / 4 + 8 (i % 2), column lane % 4 + 4 (i / 2)).  TF32 takes shared
+// operands K-major only.  ``accumulate`` 0 overwrites d.
+// ---------------------------------------------------------------------------
+
+// d (64 x 32) (+)= A (64 x 8, shared, K-major) B (8 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A (64 x 8, shared, K-major) B (8 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32) (+)= A (64 x 8, registers) B (8 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A (64 x 8, registers) B (8 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 96) (+)= A (64 x 8, registers) B (8 x 96, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) (+)= A (64 x 8, registers) B (8 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// tensor maps (host)
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda); null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// x, a contiguous [n2, n1, n0] tensor of ``elem``-byte elements, as a 3D
+// tensor map whose box is 64 bytes of a row (64-byte swizzle) by ``rows``
+// rows of one n2 slice; coordinates past the tensor read as zeros, so a
+// tile past n1 never reads the next slice's rows
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                              const void* x, int n2, int n1, int n0, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n0) * elem,
+                                 static_cast<cuuint64_t>(n1) * n0 * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kSwRow / elem),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(x), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -10,9 +10,15 @@ kernels take float32 or bf16 and a head dim of 32, 64, 96 or 128 (every
 head dim the repo's configurations have), and any S; ``bq`` and ``bk`` are
 the reference's block sizes and keep its contract (S a multiple of both).
 bf16 runs on the tensor cores (the forward on ``mma.sync``, the backward on
-``wgmma`` with TMA loads), float32 on the CUDA cores in true float32;
-``ref.attention_limit`` and ``ref.attention_bwd_limit`` state how far each
-may be from the plain version.
+``wgmma`` with TMA loads); float32 runs on ``wgmma`` with TMA loads too, as
+split TF32: each operand is hi + lo, two TF32 halves, and each product hi hi
++ hi lo + lo hi, within about 2^-21 of the float32 product where one TF32
+product is within 2^-11 (``ref.attention_split_tf32`` and
+``ref.attention_bwd_split_tf32`` emulate it), the scores' hi hi terms summed
+in chunks on the CUDA cores.  ``ref.attention_limit`` and
+``ref.attention_bwd_limit`` state how far each may be from the plain
+version.  A float32 call takes scratch from PyTorch's allocator for the
+K-major copies its products read (``csrc/split_tf32.cuh``).
 
 Each dispatch is an operator, so tools that trace the port see one call
 with the kernel's cost: on fake tensors (``FakeTensorMode``) it only shapes
@@ -54,7 +60,7 @@ _ARGS = (c_void_p, c_void_p, c_void_p, c_void_p,  # q, k, v, o
          c_void_p,                                # lse (null: not written)
          c_int, c_int, c_int,                     # bh, s, d
          c_int, c_float, c_int,                   # window (0: none), scale, bf16
-         c_int, c_void_p)                         # o in float32, stream
+         c_int, c_void_p, c_void_p)               # o in float32, K-major scratch, stream
 # flash_attention_bwd_launch's (csrc/flash_attn_bwd.cu)
 _BWD_ARGS = (c_void_p, c_void_p, c_void_p, c_void_p,  # q, k, v, o
              c_void_p, c_void_p,                      # do, lse
@@ -62,7 +68,7 @@ _BWD_ARGS = (c_void_p, c_void_p, c_void_p, c_void_p,  # q, k, v, o
              c_void_p,                                # delta scratch
              c_int, c_int, c_int,                     # bh, s, d
              c_int, c_float, c_int,                   # window, scale, bf16
-             c_void_p)                                # stream
+             c_void_p, c_void_p)                      # K-major scratch, stream
 
 
 def reset_launches() -> None:
@@ -213,6 +219,17 @@ def _head_dim(q, name: str) -> None:
                          f"and a head dim in {HEAD_DIMS}, got {q.dtype} and {D}")
 
 
+def _kmajor_scratch(q, copies: int):
+    """Scratch for ``copies`` K-major copies ``[BH, D, S8]`` (S8: S
+    rounded up to 8) of a float32 call's operands, from PyTorch's allocator
+    on q's stream; None for bf16, which reads its operands as they lie."""
+    if q.dtype != torch.float32:
+        return None
+    BH, S, D = q.shape
+    return torch.empty((copies, BH, D, -(-S // 8) * 8), dtype=torch.float32,
+                       device=q.device)
+
+
 def _launch_cuda(q, k, v, window, with_lse: bool):
     from .._build import launcher
 
@@ -223,6 +240,7 @@ def _launch_cuda(q, k, v, window, with_lse: bool):
     # under autograd o is float32 for the backward's delta
     out = torch.empty_like(q, dtype=torch.float32 if with_lse else q.dtype)
     lse = torch.empty((BH, S), dtype=torch.float32, device=dev) if with_lse else None
+    kmajor = _kmajor_scratch(q, 1)
     launch = launcher("flash_attention_launch", *_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -230,7 +248,7 @@ def _launch_cuda(q, k, v, window, with_lse: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, BH, S, D,
             window or 0, 1.0 / math.sqrt(D), _DTYPES[q.dtype], int(with_lse),
-            stream)
+            kmajor.data_ptr() if kmajor is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES["flash_attention"] += 1
@@ -247,6 +265,7 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, window):
     _cuda_operands((("o", o), ("lse", lse)), torch.float32, dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((BH, S), dtype=torch.float32, device=dev)
+    kmajor = _kmajor_scratch(q, 3)
     launch = launcher("flash_attention_bwd_launch", *_BWD_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -254,7 +273,8 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, window):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), BH, S, D, window or 0,
-            1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            kmajor.data_ptr() if kmajor is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: "
                            f"cudaError {rc}")

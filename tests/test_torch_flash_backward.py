@@ -10,6 +10,9 @@ Inputs are numpy draws from a seed.  In float32 the plain backward agrees
 with ``jax.vjp`` of the reference's ``attention_ref`` and with torch
 autograd to 1e-5: it recomputes P from the log-sum-exp instead of
 normalising the softmax, which moves an element by a few float32 ulps.
+The float32 kernel's split-TF32 arithmetic is emulated on the CPU and held,
+as the kernel is on the card, to ``attention_bwd_limit`` of the float64
+gradients at draws of std 2 and 3.
 The cases that need a card are marked ``cuda`` and skip without one; the
 reference package is imported inside the helpers, so they also run where
 JAX is not installed:
@@ -35,6 +38,9 @@ from repro_torch.kernels.flash_attn import (
     attention_bwd_bf16_scores,
     attention_bwd_limit,
     attention_bwd_ref,
+    attention_bwd_split_tf32,
+    attention_bwd_tf32,
+    attention_exact,
     attention_lse_ref,
     attention_pairs,
     attention_ref,
@@ -166,6 +172,75 @@ def test_bwd_limit_holds_float32_against_float64(d, window):
         assert w.dtype == torch.float64
         assert bool(((g.double() - w).abs() <= lim).all())
         assert float(lim.mean()) < 2e-3 * float(w.abs().mean())
+
+
+# the shapes of the split-TF32 readings: every head dim, S 64 and 1,024,
+# windows none and 40
+SPLIT_SHAPES = [(s, d, w) for d in (32, 64, 96, 128) for s in (64, 1024)
+                for w in (None, 40)]
+
+
+def _f32_case(s, d, window):
+    q, k, v, do = (torch.from_numpy(x) for x in _draw(s + d + (window or 0), (2, s, d)))
+    o, lse = _plain_inputs(q, k, v, window)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_bwd_split_tf32_stays_within_float32_limit(s, d, window):
+    """The float32 kernel's five products as split TF32 keep dq, dk and dv
+    within ``attention_bwd_limit`` of the plain backward."""
+    args = _f32_case(s, d, window)
+    want = attention_bwd_ref(*args, window=window)
+    got = attention_bwd_split_tf32(*args, window=window)
+    lims = attention_bwd_limit(*args, window=window)
+    for g, w, lim in zip(got, want, lims):
+        assert g.dtype == torch.float32
+        assert bool(((g - w).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_bwd_one_tf32_product_exceeds_float32_limit(s, d, window):
+    """The control, one TF32 product each, exceeds ``attention_bwd_limit``
+    several times over in dq, dk and dv."""
+    args = _f32_case(s, d, window)
+    want = attention_bwd_ref(*args, window=window)
+    got = attention_bwd_tf32(*args, window=window)
+    lims = attention_bwd_limit(*args, window=window)
+    for g, w, lim in zip(got, want, lims):
+        assert float(((g - w).abs() / lim).max()) > 4
+
+
+def _scaled_case(s, d, window, std, device="cpu", bh=2):
+    """q, k, v of std ``std`` and dO of std 1 (float32), o and lse of the
+    float64 answer: the float32 arguments and the same as float64."""
+    rng = np.random.default_rng(s + d + (window or 0))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(np.float32))
+                   .to(device) for _ in range(4))
+    q, k, v = q * std, k * std, v * std
+    o, lse = attention_exact(q, k, v, window=window)
+    args64 = (q.double(), k.double(), v.double(), o, lse, do.double())
+    return tuple(x.float() for x in args64), args64
+
+
+def _worst_share(got, want, lims) -> float:
+    return max(float(((g.double() - w).abs() / lim).max())
+               for g, w, lim in zip(got, want, lims))
+
+
+@pytest.mark.parametrize("std", [2.0, 3.0])
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_bwd_split_tf32_holds_float32_limit_against_float64(s, d, window, std):
+    """At draws of std 2 and 3 the split keeps dq, dk and dv within
+    ``attention_bwd_limit`` of the float64 gradients, within twice the
+    plain float32 backward's error; one TF32 product is 50 times over."""
+    args, args64 = _scaled_case(s, d, window, std)
+    want = attention_bwd_ref(*args64, window=window)
+    lims = attention_bwd_limit(*args, window=window)
+    split = _worst_share(attention_bwd_split_tf32(*args, window=window), want, lims)
+    plain = _worst_share(attention_bwd_ref(*args, window=window), want, lims)
+    assert split <= 1 and split <= 2 * plain
+    assert _worst_share(attention_bwd_tf32(*args, window=window), want, lims) > 50 * plain
 
 
 def test_padded_keys_get_zero_grads():
@@ -402,6 +477,44 @@ def test_cuda_backward_at_training_shape(cuda_device, bh, window, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     args = _card_case(cuda_device, 4096, 64, window, torch.bfloat16, bh=bh)
     _check_backward(args, window, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,window", [(28, None), (25, 2048)])
+def test_cuda_backward_float32_at_training_shape(cuda_device, bh, window, monkeypatch):
+    """The split-TF32 backward at qwen2-0.5b's training shape (BH 28, S
+    4,096, D 64) and with hymba-1.5b's window of 2,048:
+    :func:`_check_backward`, within ``attention_bwd_limit``."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args = _card_case(cuda_device, 4096, 64, window, torch.float32, bh=bh)
+    _check_backward(args, window, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,window", [(129, 64, 2048), (200, 128, 2048),
+                                        (1024, 32, 2048), (1024, 96, 128)])
+def test_cuda_backward_float32_windows(cuda_device, s, d, window, monkeypatch):
+    """Windows of 128 and 2,048 (wider than S) on ragged and whole tiles:
+    :func:`_check_backward` in float32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    _check_backward(_card_case(cuda_device, s, d, window, torch.float32), window,
+                    torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [2.0, 3.0])
+@pytest.mark.parametrize("bh,s,d,window", [
+    (2, 1024, 128, None), (3, 1024, 64, 40), (2, 200, 96, None), (4, 4096, 64, None)])
+def test_cuda_backward_float32_against_float64(cuda_device, bh, s, d, window, std,
+                                               monkeypatch):
+    """The split-TF32 backward at draws of std 2 and 3 keeps dq, dk and dv
+    within ``attention_bwd_limit`` of the float64 gradients (o and lse of
+    the float64 answer)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args, args64 = _scaled_case(s, d, window, std, device=cuda_device, bh=bh)
+    got = flash_attention_backward(*args, window=window)
+    want = attention_bwd_ref(*args64, window=window)
+    assert _worst_share(got, want, attention_bwd_limit(*args, window=window)) <= 1
 
 
 @pytest.mark.cuda

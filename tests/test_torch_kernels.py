@@ -13,6 +13,12 @@ The CUDA kernel in bf16 also rounds P to bf16 before P V, so it is held to
 ``attention_limit`` per element and to ``BF16_RMS_LIMIT`` over all
 elements; CPU tests emulate that rounding and check both, and check that a
 control which also rounds the scores fails the second.
+In float32 the CUDA kernel runs its products as split TF32; CPU tests
+emulate that arithmetic (``attention_split_tf32``) within
+``attention_limit``, check that one TF32 product exceeds it, hold it at
+draws of std 2 and 3 against the float64 answer (``attention_exact``)
+beside the plain float32 version, and check the row permutation of the
+K-major copies the kernel's products read.
 The cases that run a CUDA kernel against its plain version are skipped
 without a card; the reference package is imported inside the parity
 helpers, so those cases also run where JAX is not installed:
@@ -36,13 +42,18 @@ from repro_torch.kernels.flash_attn import (
     BF16_RMS_LIMIT,
     LAUNCHES as FA_LAUNCHES,
     attention_bf16_scores,
+    attention_exact,
     attention_limit,
     attention_ref,
+    attention_split_tf32,
+    attention_tf32,
     flash_attention,
+    kmajor_copy,
     mha_flash,
     mha_ref,
     rms_ratio,
 )
+from repro_torch.kernels.flash_attn.ref import KMAJOR_PERM, tf32
 from repro_torch.kernels.flash_attn.ops import _fold
 from repro_torch.kernels.membership import (
     LAUNCHES as MB_LAUNCHES,
@@ -471,6 +482,141 @@ def test_attention_limit_float32():
                                2e-5 + 2e-5 * want.abs(), rtol=0, atol=0)
 
 
+# the shapes of the split-TF32 readings: every head dim, S 64 and 1,024,
+# windows none and 40
+SPLIT_SHAPES = [(s, d, w) for d in (32, 64, 96, 128) for s in (64, 1024)
+                for w in (None, 40)]
+FA_SRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/flash_attn/csrc"
+
+
+def _f32_inputs(seed: int, s: int, d: int, bh: int = 2):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, s, d)).astype(np.float32))
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_split_tf32_stays_within_float32_limit(s, d, window):
+    """Q K^T and P V as split TF32 (three TF32 products) stay within
+    ``attention_limit``."""
+    q, k, v = _f32_inputs(s + d + (window or 0), s, d)
+    want = attention_ref(q, k, v, window=window)
+    got = attention_split_tf32(q, k, v, window=window)
+    err = (got - want).abs()
+    assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
+
+
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_one_tf32_product_exceeds_float32_limit(s, d, window):
+    """The control, one TF32 product for Q K^T and P V, exceeds
+    ``attention_limit`` several times over: the limit tells the split
+    from a single TF32 product."""
+    q, k, v = _f32_inputs(s + d + (window or 0), s, d)
+    want = attention_ref(q, k, v, window=window)
+    share = (attention_tf32(q, k, v, window=window) - want).abs() / attention_limit(
+        q, k, v, want, window=window)
+    assert float(share.max()) > 4
+
+
+def _share(got, want, lim) -> float:
+    return float(((got.double() - want.double()).abs() / lim).max())
+
+
+@pytest.mark.parametrize("std", [2.0, 3.0])
+@pytest.mark.parametrize("s,d,window", SPLIT_SHAPES)
+def test_split_tf32_against_float64(s, d, window, std):
+    """At draws of std 2 and 3 the split stays within twice the plain
+    float32 version's error against the float64 answer (``attention_exact``),
+    and one TF32 product is 50 times over.  At std 2 both stay within
+    ``attention_limit``; at std 3 the plain version's own rounding of the
+    scores can exceed it."""
+    q, k, v = (x * std for x in _f32_inputs(s + d + (window or 0), s, d))
+    want, _ = attention_exact(q, k, v, window=window)
+    lim = attention_limit(q, k, v, want.float(), window=window)
+    plain = _share(attention_ref(q, k, v, window=window), want, lim)
+    split = _share(attention_split_tf32(q, k, v, window=window), want, lim)
+    assert split <= 2 * plain
+    assert std > 2 or max(split, plain) <= 1
+    assert _share(attention_tf32(q, k, v, window=window), want, lim) > 50 * plain
+
+
+def test_tf32_rounding():
+    """``tf32`` clears the low 13 mantissa bits, rounding to nearest with
+    ties away from zero or truncating; x - tf32(x) is exact."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 4, 1 + ulp / 2, 1 + 3 * ulp / 4, -(1 + ulp / 2), 3.0])
+    assert tf32(x).tolist() == [1.0, 1 + ulp, 1 + ulp, -(1 + ulp), 3.0]
+    assert tf32(x, "trunc").tolist() == [1.0, 1.0, 1.0, -1.0, 3.0]
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(1000).astype(np.float32))
+    for mode in ("rna", "trunc"):
+        hi = tf32(y, mode)
+        assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+        assert torch.equal((y - hi).double() + hi.double(), y.double())
+    with pytest.raises(ValueError):
+        tf32(y, "rne")
+
+
+@pytest.mark.parametrize("s", [8, 64, 129, 200, 1024])
+def test_kmajor_permutation_keeps_the_product(s):
+    """A wgmma accumulator's thread holds columns 2c and 2c + 1 of each
+    8-column block, which the kernel hands on (``split_a``: elements 0, 2,
+    1, 3) as the TF32 A fragment's columns c and c + 4.  Read so, P times
+    the permuted K-major copy is P V, and the copy is zero past S."""
+    perm = [0] * 8
+    for c in range(4):  # lane % 4
+        perm[c], perm[c + 4] = 2 * c, 2 * c + 1
+    assert tuple(perm) == KMAJOR_PERM
+    rng = np.random.default_rng(s)
+    p = torch.from_numpy(rng.random((64, s)))
+    v = torch.from_numpy(rng.standard_normal((1, s, 32)))
+    vt = kmajor_copy(v)
+    s8 = -(-s // 8) * 8
+    assert tuple(vt.shape) == (1, 32, s8) and not bool(vt[..., s:].any())
+    # the A operand as the tensor cores read it: column 8g + i is the
+    # accumulator's column 8g + perm[i]
+    padded = torch.zeros((64, s8), dtype=p.dtype)
+    padded[:, :s] = p
+    seen = padded[:, torch.arange(s8).view(-1, 8)[:, perm].reshape(-1)]
+    torch.testing.assert_close(seen @ vt[0].T, p @ v[0], rtol=1e-12, atol=1e-12)
+
+
+def test_kmajor_permutation_matches_kernel_source():
+    """The CUDA copy's source row and ``split_a``'s element order are the
+    permutation the plain version and the test above use."""
+    src = (FA_SRC / "split_tf32.cuh").read_text()
+    expr = re.search(r"const int src = ([^;]+);", src).group(1)
+    assert tuple(eval(expr, {"tx": i}) for i in range(8)) == KMAJOR_PERM
+    assert "{x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]}" in src
+
+
+def test_kmajor_scratch_is_taken_for_float32_only():
+    """A float32 call takes ``copies`` K-major copies ``[BH, D, S8]`` of
+    scratch from PyTorch's allocator; bf16 reads its operands as they lie."""
+    from repro_torch.kernels.flash_attn.flash_attn import _kmajor_scratch
+
+    x = torch.zeros((2, 129, 64))
+    got = _kmajor_scratch(x, 3)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 2, 64, 136)
+    assert _kmajor_scratch(x.to(torch.bfloat16), 3) is None
+
+
+@pytest.mark.parametrize("path,name,params", [
+    ("flash_attn.cu", "flash_attention_f32_smem", "int d"),
+    ("flash_attn_bwd.cu", "flash_attention_bwd_f32_smem", "int d, int dq_pass")])
+def test_float32_smem_entry_points(path, name, params):
+    """``chip_smoke.py`` reads the float32 kernels' dynamic shared memory
+    through these entry points, which answer every head dim the launchers
+    take and -1 for others."""
+    from repro_torch.kernels.flash_attn.flash_attn import HEAD_DIMS
+
+    src = (FA_SRC / path).read_text()
+    fn = src[src.index(f'extern "C" int {name}('):]
+    fn = fn[:fn.index("\n}\n")]
+    assert fn[fn.index("(") + 1:fn.index(")")] == params
+    assert tuple(map(int, re.findall(r"case (\d+):", fn))) == HEAD_DIMS
+    assert "default: return -1;" in fn
+
+
 def test_head_dims_match_kernel_source():
     """The wrapper's head dims are the C launcher's guard and dispatch."""
     from repro_torch.kernels.flash_attn.flash_attn import HEAD_DIMS
@@ -583,6 +729,47 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
     got, want = mha_flash(q, k, v), mha_ref(q, k, v)
     err = (got.float() - want.float()).abs()
     assert bool((_fold(err) <= attention_limit(*map(_fold, (q, k, v, want)))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,window", [
+    (3, 129, 64, None), (3, 200, 128, 128), (3, 129, 32, 2048), (3, 200, 96, 128),
+    (2, 1024, 128, 128), (2, 4096, 64, 2048), (28, 4096, 64, None)])
+def test_cuda_flash_attention_float32_edges(cuda_device, bh, s, d, window, monkeypatch):
+    """The split-TF32 kernel at ragged S (129, 200: tiles past S), windows
+    of 128 and 2,048 and qwen2-0.5b's training shape (BH 28, S 4,096, D
+    64), element by element within ``attention_limit``, one launch."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) for x in _f32_inputs(s + d + bh, s, d, bh=bh))
+    want = attention_ref(q, k, v, window=window)
+    before = FA_LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, window=window, bq=1, bk=1)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert FA_LAUNCHES["flash_attention"] == before + 1
+    err = (got - want).abs()
+    assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [2.0, 3.0])
+@pytest.mark.parametrize("bh,s,d,window", [
+    (2, 1024, 128, None), (3, 1024, 64, 40), (2, 200, 96, None), (4, 4096, 64, None)])
+def test_cuda_flash_attention_float32_against_float64(cuda_device, bh, s, d, window,
+                                                      std, monkeypatch):
+    """The split-TF32 kernel at draws of std 2 and 3 against the float64
+    answer (``attention_exact``): at std 2 within ``attention_limit``; at
+    std 3, where the plain float32 version's own rounding of the scores can
+    exceed that limit, within twice the plain float32 version's error."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) * std for x in _f32_inputs(s + d + bh, s, d, bh=bh))
+    want, _ = attention_exact(q, k, v, window=window)
+    lim = attention_limit(q, k, v, want.float(), window=window)
+    got = _share(flash_attention(q, k, v, window=window, bq=1, bk=1), want, lim)
+    if std == 2.0:
+        assert got <= 1
+    else:
+        assert got <= 2 * _share(attention_ref(q, k, v, window=window), want, lim)
 
 
 @pytest.mark.cuda
