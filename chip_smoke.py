@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
 1. device      — the card's name and power limit (``nvidia-smi``).
 2. build       — compiles the CUDA kernels from ``src/repro_torch/kernels``,
                  then prints ``k5_bwd_resources`` (registers, spill bytes
-                 and dynamic shared memory of each bf16 instance of K5's
-                 backward kernels and each float32 instance of its forward
-                 and backward kernels, from ``ptxas -v`` in the build
+                 and dynamic shared memory of every instance of K5's
+                 kernels: the bf16 forward in both output types, the bf16
+                 backward, the float32 forward and backward, from
+                 ``ptxas -v`` in the build
                  directory, with ptxas's warnings about them) and
                  ``k5_bwd_sass`` (their ``HGMMA``, ``UTMALDG`` and
                  ``HMMA`` instructions in ``cuobjdump -sass`` of the
@@ -1950,22 +1951,26 @@ def check_k5_calls(path: str, smi: str) -> tuple:
     return done
 
 
-# the wgmma instances of K5's kernels: the bf16 backward and the float32
-# forward and backward, each with its shared-memory entry point's arguments
-# (head dim, and the pass: 0 dK/dV, 1 dQ)
-K5_WGMMA = {**{f"flash_bwd_{p}_{t}<{d}>": (f"flash_attention_bwd_{t}_smem", d, p == "dq")
+# the wgmma instances of K5's kernels: the bf16 forward (o in bf16 for
+# prefill, in float32 with the log-sum-exp under autograd), the bf16
+# backward and the float32 forward and backward, each with its
+# shared-memory entry point's arguments (head dim, and the pass: 0 dK/dV,
+# 1 dQ)
+K5_WGMMA = {**{f"flash_attention_bf16<{d}, {o}>": ("flash_attention_bf16_smem", d, None)
+               for o in ("__nv_bfloat16", "float") for d in (32, 64, 96, 128)},
+            **{f"flash_bwd_{p}_{t}<{d}>": (f"flash_attention_bwd_{t}_smem", d, p == "dq")
                for t in ("bf16", "f32") for p in ("dkdv", "dq") for d in (32, 64, 96, 128)},
             **{f"flash_attention_f32<{d}>": ("flash_attention_f32_smem", d, None)
                for d in (32, 64, 96, 128)}}
 
 
 def phase_k5_bwd_build(lib, smi: str) -> None:
-    """Resources and SASS of K5's wgmma kernels (the bf16 backward, the
-    float32 forward and backward): registers, stack and spill bytes from
-    ``ptxas -v`` (kept beside the library), their dynamic shared memory
-    from the library; the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
-    loads) and ``HMMA`` (mma.sync) in each.  Each must hold wgmma and TMA
-    loads and no mma.sync, where the toolkit has ``cuobjdump``."""
+    """Resources and SASS of K5's wgmma kernels (the bf16 forward and
+    backward, the float32 forward and backward): registers, stack and spill
+    bytes from ``ptxas -v`` (kept beside the library), their dynamic shared
+    memory from the library; the count of ``HGMMA`` (wgmma), ``UTMALDG``
+    (TMA loads) and ``HMMA`` (mma.sync) in each.  Each must hold wgmma and
+    TMA loads and no mma.sync, where the toolkit has ``cuobjdump``."""
     import ctypes
 
     from repro_torch.kernels import _build

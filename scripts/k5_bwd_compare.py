@@ -1,7 +1,7 @@
-"""K5's kernels of two checkouts in turns on one card: the bf16 backward at
-the model shapes the port trains and serves, and the float32 forward and
-backward at phase 6's float32 case and qwen2-0.5b's training shape, each
-beside SDPA on the same inputs and the bounds.
+"""K5's kernels of two checkouts in turns on one card: the bf16 forward and
+backward at the model shapes the port trains and serves, and the float32
+forward and backward at phase 6's float32 case and qwen2-0.5b's training
+shape, each beside SDPA on the same inputs and the bounds.
 
     python scripts/k5_bwd_compare.py --parent build/parent [--order PCCP]
         [--dtypes bfloat16,float32] [--out FILE]
@@ -11,8 +11,12 @@ example ``git archive`` of the parent commit unpacked under ``build/``);
 ``C`` is this checkout.  Each letter of ``--order`` is one run in a
 process of its own, which builds that checkout's kernels and times each
 shape of ``--dtypes`` (CUDA events, median of 10 rounds of 2 calls, warm)
-on the same seeded inputs: ``flash_attention_backward`` in bf16, and in
-float32 also ``flash_attention`` (the forward).  A float32 run also reads,
+on the same seeded inputs: in bf16 ``flash_attention`` (prefill: o in
+bf16, no log-sum-exp), ``flash_attention_fwd`` (o in float32 and the
+log-sum-exp, as autograd calls it) and ``flash_attention_backward``; in
+float32 ``flash_attention`` and ``flash_attention_backward``.  Each run
+also gives the ``ptxas -v`` resources of its bf16 forward instances
+(registers, spill bytes).  A float32 run also reads,
 at draws of q, k, v of std 1, 2 and 3, the worst share of
 ``attention_limit`` (forward) and ``attention_bwd_limit`` (dq, dk, dv)
 against the plain float32 version (``against_float32``, the limits as the
@@ -22,7 +26,8 @@ float64 (the backward handed the float64 answer's o and lse there).  The
 runs of this checkout also time SDPA
 (``scaled_dot_product_attention``: causal, or the window as a boolean
 mask; its backward by ``torch.autograd.grad``) and give the bounds: bf16
-10 D flops per unmasked (query, key) pair and head at 989 TFLOP/s; float32
+4 D (forward) and 10 D (backward) flops per unmasked (query, key) pair and
+head at 989 TFLOP/s; float32
 the flops at the CUDA cores' 67 TFLOP/s and as three TF32 products per
 product (the split the kernels run) at the tensor cores' 495 TFLOP/s.  In
 float32 they also name the kernels SDPA launches (``torch.profiler``) and
@@ -195,7 +200,7 @@ def sdpa_pair():
 def bf16_shape(bh, s, d, window, library: bool) -> dict:
     import torch
 
-    from repro_torch.kernels.flash_attn import (attention_pairs,
+    from repro_torch.kernels.flash_attn import (attention_pairs, flash_attention,
                                                 flash_attention_backward,
                                                 flash_attention_fwd)
 
@@ -203,12 +208,16 @@ def bf16_shape(bh, s, d, window, library: bool) -> dict:
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = flash_attention_fwd(q, k, v, window=window)
-    rec = {"ms": time_ms(lambda: flash_attention_backward(q, k, v, o, lse, do,
-                                                          window=window))}
+    rec = {"forward_ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
+           "forward_lse_ms": time_ms(lambda: flash_attention_fwd(q, k, v, window=window)),
+           "backward_ms": time_ms(lambda: flash_attention_backward(q, k, v, o, lse, do,
+                                                                   window=window))}
     if library:
-        _, lib_bwd = sdpa_calls(q, k, v, do, window)
-        rec["library_ms"] = time_ms(lib_bwd)
-        rec["bound_ms"] = 10 * d * bh * attention_pairs(s, window) / BF16_FLOPS_PER_S * 1e3
+        lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, window)
+        pairs = attention_pairs(s, window)
+        rec.update(library_forward_ms=time_ms(lib_fwd), library_backward_ms=time_ms(lib_bwd),
+                   forward_bound_ms=4 * d * bh * pairs / BF16_FLOPS_PER_S * 1e3,
+                   backward_bound_ms=10 * d * bh * pairs / BF16_FLOPS_PER_S * 1e3)
     return rec
 
 
@@ -260,8 +269,11 @@ def worker(root: str, library: bool, dtypes) -> dict:
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products
-    _build.build()
-    out = {"root": root, "shapes": {}}
+    lib = _build.build()
+    res = _build.resources((lib.parent / _build.PTXAS_LOG).read_text())
+    out = {"root": root, "shapes": {},
+           "bf16_forward_resources": {k: v for k, v in res.items()
+                                      if "flash_attention_bf16" in k}}
     for label, dtype, bh, s, d, window in SHAPES:
         if dtype not in dtypes:
             continue
@@ -306,7 +318,9 @@ def main() -> None:
             continue
         row = {"shape": label, "dtype": dtype, "bh": bh, "s": s, "d": d, "window": window,
                "nvidia_smi": smi}
-        times = ("ms",) if dtype == "bfloat16" else ("forward_ms", "backward_ms")
+        times = ("forward_ms", "backward_ms")
+        if dtype == "bfloat16":
+            times = ("forward_ms", "forward_lse_ms", "backward_ms")
         for side in "PC":
             mine = [r["shapes"][label] for r in runs if r["side"] == side]
             row[side] = {key: [x[key] for x in mine] for key in times}

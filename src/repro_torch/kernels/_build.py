@@ -119,9 +119,38 @@ def build() -> Path:
     return out
 
 
+_BUILTIN_TYPES = {"f": "float"}  # the builtin types the kernels are instantiated with
+
+
+def _template_args(text: str) -> Optional[List[str]]:
+    """The arguments of a mangled template argument list that starts
+    ``text`` (``ILi64EfE`` -> ``["64", "float"]``): integers, float and
+    named types; None for anything else."""
+    if not text.startswith("I"):
+        return None
+    args, i = [], 1
+    while i < len(text) and text[i] != "E":
+        m = re.match(r"Li(\d+)E", text[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+        elif text[i] in _BUILTIN_TYPES:
+            args.append(_BUILTIN_TYPES[text[i]])
+            i += 1
+        elif text[i].isdigit():
+            m = re.match(r"\d+", text[i:])
+            start = i + len(m.group(0))
+            i = start + int(m.group(0))
+            args.append(text[start:i])
+        else:
+            return None
+    return args if i < len(text) and args else None
+
+
 def _kernel_name(mangled: str) -> str:
-    """``flash_bwd_dq_bf16<64>`` for a mangled kernel name with one integer
-    template argument, else the mangled name itself."""
+    """``flash_bwd_dq_bf16<64>`` or ``flash_attention_bf16<64, float>`` for
+    a mangled kernel name whose template arguments are integers or types,
+    else the mangled name itself."""
     i = mangled.find("_ZN") + 3
     name = None
     while i > 2 and i < len(mangled) and mangled[i].isdigit():
@@ -129,8 +158,8 @@ def _kernel_name(mangled: str) -> str:
         start = i + len(m.group(0))
         i = start + int(m.group(0))
         name = mangled[start:i]
-    m = re.match(r"ILi(\d+)E", mangled[i:]) if name else None
-    return f"{name}<{m.group(1)}>" if m else mangled
+    args = _template_args(mangled[i:]) if name else None
+    return f"{name}<{', '.join(args)}>" if args else mangled
 
 
 def resources(text: str) -> Dict[str, dict]:

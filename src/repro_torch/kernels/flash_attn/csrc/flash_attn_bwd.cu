@@ -147,8 +147,6 @@ constexpr int kRows = 128;    // keys (dK/dV) or queries (dQ) of a CTA
 constexpr int kGroups = 2;    // consumer warpgroups, 64 of those rows each
 constexpr int kThreadsTc = 128 * (kGroups + 1);  // and a producer warpgroup
 constexpr int kStages = 2;    // ring of the other side's tiles
-constexpr int kBox = 32;      // columns of a TMA box: 64-byte rows
-constexpr int kBoxRow = 2 * kBox;  // bytes of a box row
 constexpr int kProducerRegs = 40;  // registers a producer thread keeps
 constexpr int kConsumerRegs = 232;  // and a consumer thread takes
 
@@ -181,27 +179,6 @@ struct Smem {
     return BARS + 8 * (1 + kStages + st);
   }
 };
-
-// rows [row, row + ROWS) of one head of a [bh, s, D] tensor map, all D / 32
-// boxes, into the tile at ``dst``
-template <int D, int ROWS>
-__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
-#pragma unroll
-  for (int b = 0; b < D / kBox; ++b) {
-    tma_load_3d(dst + b * ROWS * kBoxRow, map, bar, b * kBox, row, head);
-  }
-}
-
-// Round float accumulators to bf16 A fragments: k-step kk of a 64 x N
-// accumulator is its n-tiles 2 kk and 2 kk + 1.
-template <int M, int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[M][4], const float (&x)[N], int kk) {
-  a[kk][0] = bf16_pair(x[8 * kk], x[8 * kk + 1]);
-  a[kk][1] = bf16_pair(x[8 * kk + 2], x[8 * kk + 3]);
-  a[kk][2] = bf16_pair(x[8 * kk + 4], x[8 * kk + 5]);
-  a[kk][3] = bf16_pair(x[8 * kk + 6], x[8 * kk + 7]);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc, 1)

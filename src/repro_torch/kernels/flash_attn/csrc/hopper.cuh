@@ -1,8 +1,9 @@
-// Hopper (sm_90a) device helpers of K5's wgmma kernels (the bf16 backward
-// in flash_attn_bwd.cu, both float32 kernels): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors, wgmma products (float32 accumulators,
-// bf16 or TF32 operands), register hand-over between warpgroups, and on the
-// host the tensor maps TMA reads.  Only sm_90a has wgmma and setmaxnreg.
+// Hopper (sm_90a) device helpers of K5's wgmma kernels (the bf16 forward
+// in flash_attn.cu and backward in flash_attn_bwd.cu, both float32
+// kernels): mbarriers, named barriers, TMA tile loads, wgmma shared-memory
+// descriptors, wgmma products (float32 accumulators, bf16 or TF32
+// operands), register hand-over between warpgroups, and on the host the
+// tensor maps TMA reads.  Only sm_90a has wgmma and setmaxnreg.
 // Like tensor_core.cuh, everything is in an anonymous namespace.
 //
 // Operand layout: a tile is stored as boxes of 64-byte rows (32 bf16 or 16
@@ -86,6 +87,35 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       : "memory");
 }
 
+constexpr int kSwRow = 64;        // bytes of a 64-byte-swizzled box row
+constexpr int kBox = kSwRow / 2;  // bf16 columns of a TMA box: 32
+
+// rows [row, row + ROWS) of one head of a [bh, s, D] bf16 tensor map, all
+// D / 32 boxes, into the tile at ``dst``
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const void* map, uint32_t bar,
+                                         int row, int head) {
+#pragma unroll
+  for (int b = 0; b < D / kBox; ++b) {
+    tma_load_3d(dst + b * ROWS * kSwRow, map, bar, b * kBox, row, head);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// named barriers (id 0 is __syncthreads')
+// ---------------------------------------------------------------------------
+
+// waits until ``threads`` threads have arrived at barrier ``id``, this one
+// included
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// counts this thread at barrier ``id`` without waiting
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // warpgroups
 // ---------------------------------------------------------------------------
@@ -141,8 +171,6 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 2ull << 62;
 }
-
-constexpr int kSwRow = 64;  // bytes of a 64-byte-swizzled box row
 
 // k-step kk (bytes 32 kk .. 32 kk + 31 of each row) of rows [r0, r0 + 64)
 // of a [ROWS, *] tile of 64-byte boxes read K-major: the A of a product
@@ -323,6 +351,16 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Round float accumulators to bf16 A fragments: k-step kk of a 64 x N
+// accumulator is its n-tiles 2 kk and 2 kk + 1.
+template <int M, int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[M][4], const float (&x)[N], int kk) {
+  a[kk][0] = bf16_pair(x[8 * kk], x[8 * kk + 1]);
+  a[kk][1] = bf16_pair(x[8 * kk + 2], x[8 * kk + 3]);
+  a[kk][2] = bf16_pair(x[8 * kk + 4], x[8 * kk + 5]);
+  a[kk][3] = bf16_pair(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ PyTorch versions (``ref.py``); CUDA tensors launch the kernel or raise.  The
 kernels take float32 or bf16 and a head dim of 32, 64, 96 or 128 (every
 head dim the repo's configurations have), and any S; ``bq`` and ``bk`` are
 the reference's block sizes and keep its contract (S a multiple of both).
-bf16 runs on the tensor cores (the forward on ``mma.sync``, the backward on
-``wgmma`` with TMA loads); float32 runs on ``wgmma`` with TMA loads too, as
+bf16 runs on the tensor cores (``wgmma`` with TMA loads, in both
+directions); float32 runs on ``wgmma`` with TMA loads too, as
 split TF32: each operand is hi + lo, two TF32 halves, and each product hi hi
 + hi lo + lo hi, within about 2^-21 of the float32 product where one TF32
 product is within 2^-11 (``ref.attention_split_tf32`` and

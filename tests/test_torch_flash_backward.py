@@ -604,8 +604,9 @@ def test_cuda_node_launches_each_kernel_once(cuda_device, window, monkeypatch):
 
 
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
-    """Both K5 sources include ``csrc/tensor_core.cuh``: an edit of the
-    header alone must name another library, so no stale binary loads."""
+    """Both K5 sources include ``csrc/tensor_core.cuh`` (through
+    ``hopper.cuh``): an edit of the header alone must name another library,
+    so no stale binary loads."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -692,9 +693,26 @@ def test_sass_counts_by_kernel():
 
     got = sass_counts(_SASS, ("HGMMA", "UTMALDG", "HMMA"))
     assert got["flash_bwd_dq_bf16<64>"] == {"HGMMA": 1, "UTMALDG": 2, "HMMA": 0}
-    # two template arguments: not shortened
+    # a type among the template arguments is named too
     other = [k for k in got if "flash_attention_bf16" in k]
-    assert len(other) == 1 and got[other[0]]["HMMA"] == 1
+    assert other == ["flash_attention_bf16<64, float>"] and got[other[0]]["HMMA"] == 1
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN46_GLOBAL__N__525bf55f_17_flash_attn_cu_41c6651720flash_attention_bf16"
+     "ILi128E13__nv_bfloat16EEv14CUtensorMap_stS1_S1_PT0_Pfiif",
+     "flash_attention_bf16<128, __nv_bfloat16>"),
+    ("_ZN12_GLOBAL__N_115flash_bwd_deltaIfLi64EEEvPKfPKT_Pfl", "flash_bwd_delta<float, 64>"),
+    ("_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi32EEEv14CUtensorMap_st", "flash_bwd_dq_f32<32>"),
+    ("_ZN12_GLOBAL__N_111kmajor_copyEPKfPfiii", "_ZN12_GLOBAL__N_111kmajor_copyEPKfPfiii"),
+    ("pred_filter_kernel", "pred_filter_kernel")])
+def test_kernel_names_with_type_arguments(mangled, name):
+    """``_build._kernel_name`` spells out integer, float and named template
+    arguments in order (``chip_smoke.py`` keys the bf16 forward's
+    instances by them) and leaves a name it cannot read as it is."""
+    from repro_torch.kernels._build import _kernel_name
+
+    assert _kernel_name(mangled) == name
 
 
 def test_bf16_backward_smem_entry_point():

@@ -44,10 +44,12 @@ from repro_torch.kernels.flash_attn import (
     attention_bf16_scores,
     attention_exact,
     attention_limit,
+    attention_lse_ref,
     attention_ref,
     attention_split_tf32,
     attention_tf32,
     flash_attention,
+    flash_attention_fwd,
     kmajor_copy,
     mha_flash,
     mha_ref,
@@ -410,7 +412,7 @@ def test_mha_flash_layout(window):
 
 
 # the shapes the bf16 limit is checked at, on the CPU and on the card: every
-# head dim the kernel is built for, S ragged against the kernel's 64-row
+# head dim the kernel is built for, S ragged against the kernel's 128-row
 # tiles (288) or not, and windows narrower than a tile, so that rows meet
 # fully masked tiles first
 LIMIT_SHAPES = [(s, d, w) for d in (32, 64, 96, 128)
@@ -423,11 +425,13 @@ def _bf16_inputs(seed: int, s: int, d: int, bh: int = 2):
         np.float32)).to(torch.bfloat16) for _ in range(3))
 
 
-def _emulate_bf16_kernel(q, k, v, window, tile: int = 64):
+def _emulate_bf16_kernel(q, k, v, window):
     """The bf16 CUDA kernel's arithmetic in plain PyTorch: float32 scores
-    and online softmax over 64-key tiles, P rounded to bf16 before P V, l
-    summed from the float32 P, the output rounded to bf16 once."""
+    and online softmax over its key tiles (128 keys, 64 above D = 64), P
+    rounded to bf16 before P V, l summed from the float32 P, the output
+    rounded to bf16 once."""
     BH, S, D = q.shape
+    tile = 128 if D <= 64 else 64
     qf, kf, vf = q.float(), k.float(), v.float()
     pos = torch.arange(S)
     m = torch.full((BH, S, 1), -1e30)
@@ -617,6 +621,38 @@ def test_float32_smem_entry_points(path, name, params):
     assert "default: return -1;" in fn
 
 
+def test_bf16_forward_smem_entry_point():
+    """``chip_smoke.py`` reads the bf16 forward's dynamic shared memory
+    through ``flash_attention_bf16_smem(int d)``, which answers every head
+    dim the launcher takes and -1 for others."""
+    from repro_torch.kernels.flash_attn.flash_attn import HEAD_DIMS
+
+    src = (FA_SRC / "flash_attn.cu").read_text()
+    fn = src[src.index('extern "C" int flash_attention_bf16_smem('):]
+    fn = fn[:fn.index("\n}\n")]
+    assert fn[fn.index("(") + 1:fn.index(")")] == "int d"
+    assert tuple(map(int, re.findall(r"case (\d+):", fn))) == HEAD_DIMS
+    assert "default: return -1;" in fn
+
+
+def _code(path: Path) -> str:
+    """A CUDA source without its comments."""
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+@pytest.mark.parametrize("instruction", [r"mma\.sync", r"ldmatrix", r"cp\.async(?!\.bulk)"])
+def test_k5_sources_hold_no_ampere_instructions(instruction):
+    """Every K5 kernel runs on wgmma fed by TMA: no source or header under
+    ``kernels/flash_attn/csrc`` issues ``mma.sync``, ``ldmatrix`` or a
+    ``cp.async`` copy (TMA's ``cp.async.bulk`` is not one)."""
+    paths = sorted(FA_SRC.glob("*.cu")) + sorted(FA_SRC.glob("*.cuh"))
+    assert {p.name for p in paths} >= {"flash_attn.cu", "flash_attn_bwd.cu", "hopper.cuh"}
+    assert "cp.async.bulk.tensor" in _code(FA_SRC / "hopper.cuh")  # the pattern's exception
+    found = [p.name for p in paths if re.search(instruction, _code(p))]
+    assert found == []
+
+
 def test_head_dims_match_kernel_source():
     """The wrapper's head dims are the C launcher's guard and dispatch."""
     from repro_torch.kernels.flash_attn.flash_attn import HEAD_DIMS
@@ -705,7 +741,7 @@ def test_cuda_membership_matches_plain(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, monkeypatch):
     """Every head dim, with and without a window, and an S that is not a
-    multiple of the kernel's 64-row tile (bq = bk = 32 on the call)."""
+    multiple of the kernel's 128-row tile (bq = bk = 32 on the call)."""
     # the plain version's float32 products stay in float32 (no TF32)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(802)
@@ -789,6 +825,86 @@ def test_cuda_flash_attention_bf16_within_limit(cuda_device, s, d, window,
     err = (got.float() - want.float()).abs()
     assert bool((err <= attention_limit(q, k, v, want, window=window)).all())
     assert rms_ratio(got, want) <= BF16_RMS_LIMIT
+
+
+def _check_bf16_fwd(q, k, v, window):
+    """``flash_attention_fwd`` (o in float32, the log-sum-exp) on bf16
+    CUDA inputs against the plain version: o element by element within
+    ``attention_limit`` and over all elements within ``BF16_RMS_LIMIT``,
+    lse within 2e-5 (1 + |lse|); one launch."""
+    before = FA_LAUNCHES["flash_attention"]
+    o, lse = flash_attention_fwd(q, k, v, window=window, bq=1, bk=1)
+    torch.cuda.synchronize()
+    assert FA_LAUNCHES["flash_attention"] == before + 1
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:2]
+    want = attention_ref(q.float(), k.float(), v.float(), window=window)
+    assert bool(((o - want).abs() <= attention_limit(q, k, v, want, window=window)).all())
+    assert rms_ratio(o, want) <= BF16_RMS_LIMIT
+    want_lse = attention_lse_ref(q, k, v, window=window)
+    assert bool(((lse - want_lse).abs() <= 2e-5 * (1 + want_lse.abs())).all())
+
+
+def _check_bf16_prefill(q, k, v, window):
+    """``flash_attention`` (o in bf16, no log-sum-exp) on bf16 CUDA inputs
+    within ``attention_limit`` and ``BF16_RMS_LIMIT``; one launch."""
+    before = FA_LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, window=window, bq=1, bk=1)
+    torch.cuda.synchronize()
+    assert FA_LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, window=window)
+    assert bool(((got.float() - want.float()).abs()
+                 <= attention_limit(q, k, v, want, window=window)).all())
+    assert rms_ratio(got, want) <= BF16_RMS_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,window", LIMIT_SHAPES)
+def test_cuda_flash_attention_bf16_lse_within_limit(cuda_device, s, d, window,
+                                                    monkeypatch):
+    """The bf16 kernel's autograd mode (o in float32 and the log-sum-exp)
+    at the limit shapes."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) for x in _bf16_inputs(s + d + (window or 0), s, d))
+    _check_bf16_fwd(q, k, v, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,window", [
+    (3, 129, 64, None), (3, 200, 128, 40), (3, 129, 32, 2048), (3, 200, 96, 128),
+    (2, 4097, 64, None), (2, 4097, 128, 2048), (1, 4097, 96, None), (2, 4097, 32, 100)])
+def test_cuda_flash_attention_bf16_ragged_s(cuda_device, bh, s, d, window, monkeypatch):
+    """Both output modes of the bf16 kernel at S of 129, 200 and 4,097: the
+    last query and key tiles run past S (zeros read, nothing written)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) for x in _bf16_inputs(s + d + bh, s, d, bh=bh))
+    _check_bf16_prefill(q, k, v, window)
+    _check_bf16_fwd(q, k, v, window)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_most_heads(cuda_device, monkeypatch):
+    """BH of 65,535, the most the launcher takes (one grid column a head),
+    in both output modes."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(cuda_device) for x in _bf16_inputs(65535, 96, 32, bh=65535))
+    _check_bf16_prefill(q, k, v, 40)
+    _check_bf16_fwd(q, k, v, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,window", [
+    (2, 4096, 64, None), (3, 200, 96, 40), (2, 1024, 128, 2048), (4, 384, 32, None)])
+def test_cuda_flash_attention_bf16_reruns_bit_equal(cuda_device, bh, s, d, window):
+    """No atomics and a fixed order of sums: two calls on the same inputs
+    give the same bits, in both output modes."""
+    q, k, v = (x.to(cuda_device) for x in _bf16_inputs(s + d, s, d, bh=bh))
+    first = flash_attention(q, k, v, window=window, bq=1, bk=1)
+    assert torch.equal(first, flash_attention(q, k, v, window=window, bq=1, bk=1))
+    o, lse = flash_attention_fwd(q, k, v, window=window, bq=1, bk=1)
+    o2, lse2 = flash_attention_fwd(q, k, v, window=window, bq=1, bk=1)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
