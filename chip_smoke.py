@@ -123,9 +123,8 @@ Phases, each printing one JSON line:
                  llama3.2-3b (28 layers): ``make_prefill_step`` at B = 1,
                  S = 4,096, a warm-up and the median of 3 (host seconds to a
                  synchronise, tokens/s, peak memory, the model FLOP rate
-                 over the bf16 peak, K5's share of prefill) and one call
-                 under ``torch.profiler`` (device time by kernel category,
-                 the idle share), each call launching K5 once a layer;
+                 over the bf16 peak, K5's share of prefill), each call
+                 launching K5 once a layer;
                  every launch of the phase must come from a prefill call.
                  The first and last layer's launches are replayed against
                  the plain version afterwards (within ``attention_limit``
@@ -165,7 +164,7 @@ Phases, each printing one JSON line:
                  a call of the plain attention or its backward on a CUDA
                  tensor raises.  A checkpoint
                  after step 3 restored into a fresh model and AdamW state
-                 bit-identical, whose step 4 (under ``torch.profiler``)
+                 bit-identical, whose step 4
                  gives the uninterrupted loss within 1e-3.  One
                  microbatch's gradients through K5's autograd node (the
                  forward and backward kernels) against the plain attention
@@ -2221,48 +2220,6 @@ def replay_k5(name, layer, kept, smi, path: str = "prefill",
     return rec
 
 
-# kernel-name categories of the prefill profile, first match wins
-PROFILE_CATEGORIES = (("k5", ("flash_attention",)),
-                      ("k5_backward", ("flash_bwd",)),
-                      ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas",
-                                "sm90")),
-                      ("elementwise", ("elementwise",)),
-                      ("reduce", ("reduce",)))
-
-
-def profile_device(call, host_s: float) -> dict:
-    """Device time of one ``call()`` by kernel (``torch.profiler``, CUPTI,
-    device activity only): the total per category of kernel name, the
-    largest kernels, and the busy share of the host-clock median ``host_s``
-    of unprofiled calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise AssertionError("the profiler saw no device kernel")
-    busy, end = 0.0, float("-inf")
-    by_name, by_cat = {}, {}
-    for a, b, name in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + (b - a) * 1e-6)
-        cat = next((c for c, keys in PROFILE_CATEGORIES
-                    if any(k in name.lower() for k in keys)), "other")
-        by_cat[cat] = by_cat.get(cat, 0.0) + (b - a) * 1e-6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"device_kernels": len(spans), "device_busy_s": busy * 1e-6,
-            "idle_share_of_host_median": 1 - busy * 1e-6 / host_s,
-            "device_s_by_category": by_cat,
-            "top_kernels": [[name[:90], n, t] for name, (n, t) in top]}
-
-
 def prefill_flops(model, s: int) -> int:
     """2 x non-embedding parameters x tokens + 2 x the causal attention
     products (QK^T and PV, 2 H D multiply-adds per unmasked pair) of every
@@ -2311,12 +2268,11 @@ def lm_model(name: str, smi: str):
     return model
 
 
-def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None,
-               profiled: bool = False) -> tuple:
+def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None) -> tuple:
     """Prefill B = 1 at ``s`` tokens: one warm-up call whose first and last
-    layer's K5 launches are kept for the replay, then ``reps`` timed calls
-    (and with ``profiled`` one more under the profiler), each launching K5
-    once a layer.  Returns (record, {layer: kept launch})."""
+    layer's K5 launches are kept for the replay, then ``reps`` timed calls,
+    each launching K5 once a layer.  Returns (record, {layer: kept
+    launch})."""
     from repro_torch.launch.steps import make_prefill_step
 
     cfg = model.cfg
@@ -2352,10 +2308,6 @@ def lm_prefill(model, s: int, smi: str, reps: int, k5_ms=None,
         rec.update(k5_ms_phase6=k5_ms, k5_share_of_prefill=L * k5_ms * 1e-3 / med,
                    k5_share_formula="layers x phase 6's K5 ms at this shape "
                                     "/ prefill median")
-    if profiled:
-        before = k5_launches()
-        rec["profile"] = profile_device(lambda: step(model, batch), med)
-        launches.append(k5_launches() - before)
     rec["k5_launches_per_call"] = launches
     emit(rec)
     if any(n != L for n in launches):
@@ -2503,7 +2455,7 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
     flash_attn.reset_launches()  # both K5 kernels' counts
     model = lm_model("llama3.2-3b", smi)
     llama, kept_llama = lm_prefill(model, LM_PREFILL_S, smi, reps=3,
-                                   k5_ms=llama_ms, profiled=True)
+                                   k5_ms=llama_ms)
     check = lm_decode_vs_prefill(model, smi)
     del model
     free_card()
@@ -2512,7 +2464,7 @@ def phase_lm(smi: str, k5_entry_recs) -> dict:
     t0 = time.perf_counter()
     model = lm_model("hymba-1.5b", smi)
     hymba, kept_hymba = lm_prefill(model, LM_PREFILL_S, smi, reps=1)
-    short, _ = lm_prefill(model, HYMBA_TIMED_S, smi, reps=1, profiled=True)
+    short, _ = lm_prefill(model, HYMBA_TIMED_S, smi, reps=1)
     emit({"phase": "lm_hymba_total", "seconds": time.perf_counter() - t0})
     del model
     free_card()
@@ -3037,27 +2989,18 @@ def phase_train(smi: str) -> dict:
     if not all(np.isfinite(r[1]) and np.isfinite(r[2]) for r in runs.values()):
         raise AssertionError(f"train step: non-finite loss or gradient norm {runs}")
 
-    # step TRAIN_CKPT_AFTER + 1 again, from the restored state, under the
-    # profiler
-    restored = {}
-
-    def restored_step():
-        _, restored["opt"], restored["metrics"] = step(
-            fresh, fresh_opt, train_batch(pipe, TRAIN_CKPT_AFTER + 1))
-
+    # step TRAIN_CKPT_AFTER + 1 again, from the restored state
     before, before_bwd = k5_launches(), k5_bwd_launches()
     t0 = time.perf_counter()
     with plain_off_card():
-        prof = profile_device(restored_step, med)
-    prof_s = time.perf_counter() - t0
+        _, _, restored = step(fresh, fresh_opt, train_batch(pipe, TRAIN_CKPT_AFTER + 1))
+    restored_loss = float(restored["loss"])
+    restored_s = time.perf_counter() - t0
     per_step.append(k5_launches() - before)
     per_step_bwd.append(k5_bwd_launches() - before_bwd)
-    emit({"phase": "train_profile", "model": TRAIN_ARCH, "step":
-          TRAIN_CKPT_AFTER + 1, "seconds_median": med, "seconds": prof_s,
-          **prof, "nvidia_smi": smi})
     kept_loss = runs[TRAIN_CKPT_AFTER + 1][1]
-    ck.update(phase="train_checkpoint",
-              loss_restored=float(restored["metrics"]["loss"]),
+    ck.update(phase="train_checkpoint", restored_step=TRAIN_CKPT_AFTER + 1,
+              restored_step_s=restored_s, loss_restored=restored_loss,
               loss_uninterrupted=kept_loss, loss_rtol=CKPT_LOSS_RTOL,
               nvidia_smi=smi)
     emit(ck)

@@ -28,6 +28,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional
 import torch
 from torch import nn
 
+from .. import trace
 from ..compat import DTensor, DeviceMesh
 from ..distrib.sharding import (NamedSharding, fsdp_spec, layout_of, spec_for,
                                tree_sharding)
@@ -239,10 +240,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig):
     the data axes).  Each gradient is reduced to its weight's layout before
     it is summed (a reduce-scatter under FSDP) on the rank's own shard,
     so the moments, the clip norm over all shards and the update follow
-    the weights' layouts."""
+    the weights' layouts.
+
+    With the span recorder on (:mod:`repro_torch.trace`) a call records
+    ``train.step`` around itself, and inside it ``train.forward`` and
+    ``train.backward`` for each microbatch, ``train.grad_accum`` for each
+    microbatch's float32 sum and once more for the division, and
+    ``optim.update``."""
 
     def train_step(model: Model, opt_state: adamw.AdamWState,
                    batch: Mapping[str, torch.Tensor]):
+        with trace.span("train.step"):
+            return _train_step(model, opt_state, batch)
+
+    def _train_step(model: Model, opt_state: adamw.AdamWState,
+                    batch: Mapping[str, torch.Tensor]):
         _check(model, cfg)
         mesh = _mesh_of(model)
         A = max(cfg.accum_steps, 1)
@@ -258,21 +270,26 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig):
             if mesh is not None:
                 mb = _place_batch(mb, mesh)
             with torch.enable_grad():
-                mb_loss = model.loss_fn(mb)
-                mb_grads = torch.autograd.grad(mb_loss, leaves)
+                with trace.span("train.forward"):
+                    mb_loss = model.loss_fn(mb)
+                with trace.span("train.backward"):
+                    mb_grads = torch.autograd.grad(mb_loss, leaves)
             loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
-            for n, p, g in zip(names, leaves, mb_grads):
-                if isinstance(g, DTensor):  # summed on this rank's shard
-                    if g.placements != p.placements:
-                        g = g.redistribute(p.device_mesh, p.placements)
-                    g = g.to_local()
-                grads[n] = grads[n].add_(g) if n in grads else g.float()
+            with trace.span("train.grad_accum"):
+                for n, p, g in zip(names, leaves, mb_grads):
+                    if isinstance(g, DTensor):  # summed on this rank's shard
+                        if g.placements != p.placements:
+                            g = g.redistribute(p.device_mesh, p.placements)
+                        g = g.to_local()
+                    grads[n] = grads[n].add_(g) if n in grads else g.float()
             del mb_loss, mb_grads
         loss = _full(loss).float()
         if A > 1:
-            grads = {n: g / A for n, g in grads.items()}
+            with trace.span("train.grad_accum"):
+                grads = {n: g / A for n, g in grads.items()}
             loss = loss / A
-        _, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
+        with trace.span("optim.update"):
+            _, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
         metrics["loss"] = loss
         return model, opt_state, metrics
 

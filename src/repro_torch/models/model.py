@@ -20,6 +20,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..distrib.sharding import local_call, replicate_like, shard
 from . import layers as L
 from . import ssm as S
@@ -269,13 +270,15 @@ class Model(nn.Module):
         [B, S] (+ patches / frames for the stubs), labels [B, S_text]."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
-        logits = self._logits(self._hidden(batch, remat))
-        if cfg.encdec:
-            return _xent(logits[:, :-1], batch["tokens"][:, 1:])
-        if cfg.frontend == "vision":
-            # loss only over text positions (after the patch prefix)
-            logits = logits[:, cfg.n_patches:, :]
-        return _xent(logits[:, :-1], batch["labels"][:, 1:])
+        x = self._hidden(batch, remat)
+        with trace.span("model.head"):
+            logits = self._logits(x)
+            if cfg.encdec:
+                return _xent(logits[:, :-1], batch["tokens"][:, 1:])
+            if cfg.frontend == "vision":
+                # loss only over text positions (after the patch prefix)
+                logits = logits[:, cfg.n_patches:, :]
+            return _xent(logits[:, :-1], batch["labels"][:, 1:])
 
     @torch.no_grad()
     def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
