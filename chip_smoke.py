@@ -145,8 +145,22 @@ Phases, each printing one JSON line:
                  launch replayed.  The replayed layer 0 of each model (head
                  dims 128, 64, 96 and 32) also gets the backward kernel, as
                  in phase 6.  ``--only-lm`` runs phases 1, 2 and 10 alone.
-11. train      — after phase 10, with its models freed and every launch
-                 count at 0: the training path at full width and depth.
+11. train      — after phase 10, with its models freed.  First the
+                 RMSNorm kernels alone (``rmsnorm`` lines): the model's
+                 norm under autograd at qwen2-0.5b's training microbatch
+                 [16,384, 896] in bf16 and float32, a llama3.2-3b prefill
+                 [4,096, 3,072] and decode's [16, 896], y's rounding
+                 points, dx and dw within ``kernels/rmsnorm/ref.py``'s
+                 limits of float64, reruns bit-equal; each way's device ms
+                 with the operands out of L2 beside the bytes bound at
+                 3.35 TB/s, the eager op (plain) and ``F.rms_norm``
+                 (library); then ``rmsnorm_host``, the host's microseconds
+                 a call at decode's shape (the kernels' route and the
+                 eager op under autograd, the launches direct and through
+                 the operators).  Then, every launch count at 0, the
+                 training path at full width and depth; each step must
+                 launch the norm's forward kernel 4 x 97 and its backward
+                 4 x 49 times.
                  qwen2-0.5b (``launch/train``'s default arch, 24 layers,
                  633 M parameters: bf16 matrices, float32 norms and qkv
                  biases), weights from a seeded generator on the card;
@@ -222,7 +236,8 @@ Phases, each printing one JSON line:
                  it, with the trace's seconds.
 
 Then a ``{"kernels": [...]}`` line (K1/K2's launches are phases 5, 11 and
-12's, K5's and its backward's phases 10, 11 and 12's; K5's
+12's, K5's and its backward's phases 10, 11 and 12's, the RMSNorm
+kernels' phase 11's; K5's
 ``head_dim_cases`` give the head dims 96 and 32, its backward's every head
 dim), the raw ``nvidia-smi`` line, and the
 final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0); the
@@ -1566,9 +1581,9 @@ def phase_baselines(db, smi: str) -> None:
 # phase 6: the other kernels through their entry points
 # --------------------------------------------------------------------------- #
 def reset_all_launches() -> None:
-    from repro_torch.kernels import flash_attn, membership, pred_filter
+    from repro_torch.kernels import flash_attn, membership, pred_filter, rmsnorm
 
-    for mod in (pred_filter, membership, flash_attn):
+    for mod in (pred_filter, membership, flash_attn, rmsnorm):
         mod.reset_launches()
 
 
@@ -2908,6 +2923,147 @@ def train_float32(pipe, smi: str) -> dict:
             "pick": pick}
 
 
+# the RMSNorm kernels (kernels/rmsnorm) alone, at the start of phase 11:
+# (label, rows, d, dtype): qwen2-0.5b's training microbatch (4 x 4,096 or
+# 16 x 1,024 tokens) in bf16 and as the float32 step runs it; a
+# llama3.2-3b prefill of 4,096 tokens; decode's 16 rows
+RMSNORM_EPS = 1e-6
+RMSNORM_CASES = (("qwen2-0.5b train microbatch", 16384, 896, "bfloat16"),
+                 ("qwen2-0.5b train microbatch f32", 16384, 896, "float32"),
+                 ("llama3.2-3b prefill", 4096, 3072, "bfloat16"),
+                 ("qwen2-0.5b decode b16", 16, 896, "bfloat16"))
+RMSNORM_HOST_CALLS, RMSNORM_HOST_ROUNDS = 400, 5
+
+
+def rmsnorm_launches() -> tuple:
+    from repro_torch.kernels.rmsnorm import LAUNCHES
+
+    return LAUNCHES["rmsnorm_fwd"], LAUNCHES["rmsnorm_bwd"]
+
+
+def host_us(fn) -> float:
+    """Median over rounds of a call's wall time in microseconds,
+    ``RMSNORM_HOST_CALLS`` calls a round and a synchronise at its end: on
+    small tensors, what the host takes to issue a call."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RMSNORM_HOST_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(RMSNORM_HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6 / RMSNORM_HOST_CALLS)
+    return float(statistics.median(times))
+
+
+def rmsnorm_case(label: str, rows: int, d: int, dtype: str, smi: str) -> dict:
+    """The model's norm (``layers.rmsnorm``) on the card under autograd
+    against the plain version: the forward's rounding points
+    (``ref.forward_gaps``), dx and dw within ``ref.DX_LIMIT`` /
+    ``ref.DW_LIMIT`` of float64, reruns bit-equal.  Device ms of a call
+    with its operands out of L2 (``time_ms_cold``): the forward kernel, the
+    backward's two, the eager op and autograd through it (the plain
+    version), and ``torch.nn.functional.rms_norm`` both ways (the library
+    yardstick, weight in x's type); the bound is the bytes each kernel must
+    move once at 3.35 TB/s."""
+    from repro_torch.kernels.rmsnorm import ref
+    from repro_torch.models import layers
+
+    dt, eps = getattr(torch, dtype), RMSNORM_EPS
+    gen = torch.Generator("cuda").manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    g = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+    fwd, bwd = torch.ops.repro_torch.rmsnorm_fwd, torch.ops.repro_torch.rmsnorm_bwd
+
+    def graph(fn):
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        return fn(xl, wl, eps), xl, wl
+
+    def grads(y, xl, wl):
+        return torch.autograd.grad(y, (xl, wl), g, retain_graph=True)
+
+    before = rmsnorm_launches()
+    y, xl, wl = graph(layers.rmsnorm)
+    dx, dw = grads(y, xl, wl)
+    y2, xl2, wl2 = graph(layers.rmsnorm)
+    again = (y2, *grads(y2, xl2, wl2))
+    launched = tuple(b - a for a, b in zip(before, rmsnorm_launches()))
+    y, rstd = fwd(x, w, eps)
+    gaps = ref.forward_gaps(x, w, eps, y, rstd)
+    exact_dx, exact_dw = ref.rmsnorm_bwd_exact(x, w, rstd, g, eps)
+    eager = graph(ref.rmsnorm_ref)
+    e_dx, e_dw = grads(*eager)
+    library = graph(lambda a, b, e: torch.nn.functional.rms_norm(a, (d,), b.to(dt), e))
+    s = dt.itemsize
+    fwd_bytes = 2 * rows * d * s + 4 * d + 4 * rows
+    bwd_bytes = 3 * rows * d * s + 4 * d + 4 * rows + 4 * d
+    rec = {"phase": "rmsnorm", "case": label, "rows": rows, "d": d, "dtype": dtype,
+           "launches": list(launched), **gaps,
+           "dx_rms_ratio": ref.rms_ratio(dx, exact_dx),
+           "dw_rms_ratio": ref.rms_ratio(dw, exact_dw),
+           "eager_dx_rms_ratio": ref.rms_ratio(e_dx, exact_dx),
+           "eager_dw_rms_ratio": ref.rms_ratio(e_dw, exact_dw),
+           "dx_limit": ref.DX_LIMIT[dt], "dw_limit": ref.DW_LIMIT,
+           "max_abs_err": float((y.float() - eager[0].detach().float()).abs().max()),
+           "reruns_equal": all(torch.equal(a, b) for a, b in zip((y, dx, dw), again)),
+           "fwd_ms": time_ms_cold(lambda: fwd(x, w, eps)),
+           "bwd_ms": time_ms_cold(lambda: bwd(x, w, rstd, g)),
+           "fwd_ms_warm": time_ms(lambda: fwd(x, w, eps)),
+           "bwd_ms_warm": time_ms(lambda: bwd(x, w, rstd, g)),
+           "fwd_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "bwd_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "fwd_plain_ms": time_ms_cold(lambda: ref.rmsnorm_ref(x, w, eps)),
+           "bwd_plain_ms": time_ms_cold(lambda: grads(*eager)),
+           "fwd_library_ms": time_ms_cold(
+               lambda: torch.nn.functional.rms_norm(x, (d,), w.to(dt), eps)),
+           "bwd_library_ms": time_ms_cold(lambda: grads(*library)),
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (gaps["own_rounding"] and gaps["same_where_t_same"] and gaps["t_ulps"] <= 1
+            and gaps["rstd_rel"] <= 1e-6 and rec["reruns_equal"]
+            and rec["dx_rms_ratio"] <= rec["dx_limit"]
+            and rec["dw_rms_ratio"] <= rec["dw_limit"] and launched == (2, 2)):
+        raise AssertionError(f"RMSNorm kernels at {label}: {rec}")
+    return rec
+
+
+def phase_rmsnorm(smi: str) -> dict:
+    """The RMSNorm kernels alone (``rmsnorm_case`` at each of
+    ``RMSNORM_CASES``), then the host's microseconds a call at decode's
+    shape, where the card's time is small: the model's norm forward and
+    backward through the kernels and through the eager op (both under
+    autograd), and the kernels' launches alone directly and through their
+    operators (no autograd)."""
+    from repro_torch.kernels.rmsnorm import ops, ref
+    from repro_torch.models import layers
+
+    t0 = time.perf_counter()
+    recs = {c[0]: rmsnorm_case(*c, smi) for c in RMSNORM_CASES}
+    free_card()
+    x = torch.randn(16, 1, 896, device="cuda", dtype=torch.bfloat16).requires_grad_()
+    w = torch.ones(896, device="cuda").requires_grad_()
+    g = torch.randn_like(x)
+    rstd = ops._launch_fwd(x.detach(), w.detach(), RMSNORM_EPS)[1]
+    xd, wd = x.detach(), w.detach()
+
+    def under_autograd(fn):
+        return lambda: torch.autograd.grad(fn(x, w, RMSNORM_EPS), (x, w), g)
+
+    host = {"kernels_fwd_bwd_autograd_us": host_us(under_autograd(layers.rmsnorm)),
+            "eager_fwd_bwd_autograd_us": host_us(under_autograd(ref.rmsnorm_ref)),
+            "launches_direct_us": host_us(lambda: (
+                ops._launch_fwd(xd, wd, RMSNORM_EPS), ops._launch_bwd(xd, wd, rstd, g))),
+            "launches_operators_us": host_us(lambda: (
+                torch.ops.repro_torch.rmsnorm_fwd(xd, wd, RMSNORM_EPS),
+                torch.ops.repro_torch.rmsnorm_bwd(xd, wd, rstd, g)))}
+    emit({"phase": "rmsnorm_host", "shape": [16, 1, 896], "dtype": "bfloat16", **host,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return {"cases": recs, "host": host}
+
+
 def phase_train(smi: str) -> dict:
     """Phase 11: the training path on the card, every launch count at 0
     just before.  K5 launches are counted per train step (2 x 24 x 4: the
@@ -2925,11 +3081,15 @@ def phase_train(smi: str) -> dict:
     from repro_torch.optim import adamw
 
     t_phase = time.perf_counter()
+    rms = phase_rmsnorm(smi)
     reset_all_launches()
     cfg = replace(get(TRAIN_ARCH), remat=True, accum_steps=TRAIN_ACCUM)
     pipe, pf_calls, pf_launches = train_pipeline(cfg.vocab, smi)
     L = cfg.n_layers
     want, want_bwd = 2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM
+    # a microbatch's norm calls: 2 a layer, twice under remat, and the
+    # final norm; the backward once a call
+    want_rms = [TRAIN_ACCUM * (2 * 2 * L + 1), TRAIN_ACCUM * (2 * L + 1)]
     t0 = time.perf_counter()
     model = Model.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -2937,13 +3097,15 @@ def phase_train(smi: str) -> dict:
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     opt = adamw.init(dict(model.named_parameters()), opt_cfg)
     step = make_train_step(cfg, opt_cfg)
-    per_step, per_step_bwd, runs = [], [], {}
+    per_step, per_step_bwd, runs, rms_per_step = [], [], {}, []
 
     torch.cuda.reset_peak_memory_stats()
     kept, undo = keep_k5_calls({0})  # microbatch 0's first layer
     try:
+        rms0 = rmsnorm_launches()
         opt, m, warm_s, n, nb = timed_train_step(step, model, opt,
                                                  train_batch(pipe, 0))
+        rms_per_step.append([b - a for a, b in zip(rms0, rmsnorm_launches())])
     finally:
         undo()
     per_step.append(n)
@@ -2952,8 +3114,10 @@ def phase_train(smi: str) -> dict:
     fresh = ck = None
     with plain_off_card():  # the timed steps: no plain attention on the card
         for i in range(1, 1 + TRAIN_TIMED):
+            rms0 = rmsnorm_launches()
             opt, m, secs, n, nb = timed_train_step(step, model, opt,
                                                    train_batch(pipe, i))
+            rms_per_step.append([b - a for a, b in zip(rms0, rmsnorm_launches())])
             per_step.append(n)
             per_step_bwd.append(nb)
             runs[i] = (secs, float(m["loss"]), float(m["grad_norm"]), float(m["lr"]))
@@ -2985,7 +3149,12 @@ def phase_train(smi: str) -> dict:
           "k5_launches_per_step": per_step, "want_k5_launches_per_step": want,
           "k5_backward_launches_per_step": per_step_bwd,
           "want_k5_backward_launches_per_step": want_bwd,
+          "rmsnorm_launches_per_step": rms_per_step,
+          "want_rmsnorm_launches_per_step": want_rms,
           "plain_attention_off_card": True, "nvidia_smi": smi})
+    if any(n != want_rms for n in rms_per_step):
+        raise AssertionError(f"train steps launched the RMSNorm kernels {rms_per_step} "
+                             f"times (forward, backward), want {want_rms}")
     if not all(np.isfinite(r[1]) and np.isfinite(r[2]) for r in runs.values()):
         raise AssertionError(f"train step: non-finite loss or gradient norm {runs}")
 
@@ -3079,6 +3248,8 @@ def phase_train(smi: str) -> dict:
     emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
           "k5_launches": launches})
     return {"launches": launches, "bwd_launches": bwd_launches,
+            "rmsnorm": rms, "rmsnorm_per_step": want_rms,
+            "rmsnorm_launches": list(rmsnorm_launches()),
             "replays": replays, "per_step": want, "per_step_bwd": want_bwd,
             "first_loss": runs[0][1], "step_s": med, "model_flops": flops,
             "pred_filter": pf_launches, "pred_filter_recs": pf}
@@ -3704,6 +3875,28 @@ def main() -> None:
                                        "rms_ratio")}
                     for x in [*cases, *entry_recs]]}
 
+    def rmsnorm_entries(train, source):
+        """The RMSNorm kernels (no TPU kernel: the reference's norm is plain
+        ``jnp``): phase 11's launches, each way's time at qwen2-0.5b's
+        training microbatch, every case beside."""
+        cases = train["rmsnorm"]["cases"]
+        r = cases[RMSNORM_CASES[0][0]]
+        return [{"name": name, "route": "cuda", "source": source,
+                 "replaces": "none: src/repro/models/layers.py:35 rmsnorm is plain jnp",
+                 "launches": train["rmsnorm_launches"][i],
+                 "launches_per_train_step": train["rmsnorm_per_step"][i],
+                 "max_abs_err": r["max_abs_err"] if i == 0 else None,
+                 "rms_ratio": None if i == 0 else [r["dx_rms_ratio"], r["dw_rms_ratio"]],
+                 "ms": r[key + "_ms"], "plain_ms": r[key + "_plain_ms"],
+                 "bound_ms": r[key + "_bound_ms"], "bound_by": "bytes",
+                 "library_ms": r[key + "_library_ms"], "shape": r["case"],
+                 "cases": {c: {f: x[key + f] for f in ("_ms", "_plain_ms", "_bound_ms",
+                                                       "_library_ms")}
+                           for c, x in cases.items()},
+                 "host_us": train["rmsnorm"]["host"]}
+                for i, (name, key) in enumerate((("rmsnorm_fwd (RMSNorm forward)", "fwd"), (
+                    "rmsnorm_bwd + rmsnorm_dw (RMSNorm backward)", "bwd")))]
+
     def later_pf(v):  # phases 11 and 12's replayed K1/K2 launches of one variant
         return [r for ph in (train, mesh)
                 for key, r in ph["pred_filter_recs"].items() if key == (v,)]
@@ -3732,6 +3925,7 @@ def main() -> None:
                  f"{kdir}/flash_attn/csrc/flash_attn.cu"),
         k5_backward_entry(lm, train, mesh, recs["flash_attention_backward"],
                           f"{kdir}/flash_attn/csrc/flash_attn_bwd.cu"),
+        *rmsnorm_entries(train, f"{kdir}/rmsnorm/csrc/rmsnorm.cu"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ activations' dtype where they are used, as in the reference.
 Causal self-attention over default positions runs through the flash
 attention kernel (``kernels/flash_attn``, K5); every other attention (the
 encoder's, cross attention, decode over the cache, explicit positions or a
-key mask) is plain PyTorch.
+key mask) is plain PyTorch.  RMSNorm runs through its kernel pair
+(``kernels/rmsnorm``), on a mesh each rank on its own rows.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..compat import DTensor, Replicate, Shard
+from ..compat import DTensor, Partial, Replicate, Shard
 from ..distrib.sharding import (current_rules, local_call, placements,
                                 replicate_like, shard, spec_for)
 from ..kernels.flash_attn.flash_attn import DEFAULT_BK, DEFAULT_BQ
 from ..kernels.flash_attn.ops import mha_flash
+from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
 from .config import ArchConfig
 
 ATTN_CHUNK_THRESHOLD = 2048
@@ -61,10 +63,54 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator, scale_dim: int,
 # --------------------------------------------------------------------------- #
 
 
+class _MeshNorm(torch.autograd.Function):
+    """RMSNorm of a DTensor: each rank runs the kernels' wrapper on its own
+    rows with the last dim whole (x made whole along it and summed where
+    it is a partial sum; w whole), and differentiates it there, the
+    forward run again in the backward.  The backward is linear in the
+    output's gradient, so where that gradient is a partial sum over a mesh
+    dim it stays one: each rank's dx and dw of its own part, summed later,
+    as DTensor's own ops would."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        mesh, last = x.device_mesh, x.ndim - 1
+        pl = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in (-1, last))
+                   else p for p in x.placements)
+        xl = x.redistribute(mesh, pl).to_local()
+        wl = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        ctx.save_for_backward(xl, wl)
+        ctx.eps, ctx.mesh, ctx.pl, ctx.w_pl = eps, mesh, pl, w.placements
+        ctx.meta = (x.shape, x.stride(), w.shape, w.stride())
+        return DTensor.from_local(rmsnorm_kernel(xl, wl, eps), mesh, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        x_shape, x_stride, w_shape, w_stride = ctx.meta
+        # a partial sum stays one where x is whole on that mesh dim
+        gpl = tuple(p if p.is_partial() and q.is_replicate() else q
+                    for p, q in zip(g.placements, ctx.pl))
+        xl, wl = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            dx, dw = torch.autograd.grad(rmsnorm_kernel(xl, wl, ctx.eps), (xl, wl),
+                                         g.redistribute(ctx.mesh, gpl).to_local())
+        # dw sums the rows: partial over each dim that splits them or g
+        dw_pl = [Partial() if p.is_partial() or p.is_shard() else Replicate() for p in gpl]
+        dw = DTensor.from_local(dw, ctx.mesh, dw_pl, run_check=False, shape=w_shape,
+                                stride=w_stride).redistribute(ctx.mesh, ctx.w_pl)
+        return (DTensor.from_local(dx, ctx.mesh, gpl, run_check=False, shape=x_shape,
+                                   stride=x_stride), dw, None)
+
+
 def rmsnorm(x, w, eps: float):
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+    """RMSNorm of the residual stream ``x [..., d]``: the kernel pair of
+    ``kernels/rmsnorm`` (on real CPU tensors its plain version, the eager
+    op); DTensors, on every device, through :class:`_MeshNorm`, which runs
+    the same wrapper on each rank's rows."""
+    if isinstance(x, DTensor):
+        return _MeshNorm.apply(x, w, eps)
+    return rmsnorm_kernel(x, w, eps)
 
 
 def _rot(cfg: ArchConfig) -> int:
